@@ -3,6 +3,7 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled with `nvcc`
 into `build/seesaw_tpu_torch/lib<name>-<hash>.so` at the repository root,
 keyed by a hash of the source and the flags, then loaded with `ctypes`.
+`load_libraries` builds several sources at once, one nvcc each.
 Nothing is built while a module is imported: the wrappers call
 `load_library` inside the function that launches the kernel.
 """
@@ -39,32 +40,47 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` if no build of this exact source exists, and
-    return the loaded library (cached for the life of the process)."""
+def _target(name: str):
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_libraries(*names: str) -> dict[str, ctypes.CDLL]:
+    """Compile every `csrc/<name>.cu` that has no build of its exact source
+    yet, one nvcc process per source, all started together, and return the
+    loaded libraries (cached for the life of the process)."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = _CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{name}-{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {src}:\n{proc.stdout}\n{proc.stderr}"
+        builds = []
+        for name in names:
+            if name in _libs:
+                continue
+            src, so = _target(name)
+            if not so.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 )
+                builds.append((name, src, so, tmp, proc, time.perf_counter()))
+        failed = []
+        for name, src, so, tmp, proc, t0 in builds:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {src}:\n{out}\n{err}")
+                continue
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
             build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        _libs[name] = lib
-        return lib
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(_target(name)[1]))
+        return {name: _libs[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` if no build of this exact source exists, and
+    return the loaded library."""
+    return load_libraries(name)[name]

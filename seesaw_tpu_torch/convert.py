@@ -8,6 +8,10 @@
   to numpy), dropping the 1024-frame tail that the Pallas layout pads on.
 - `probe_from_arrays`: a `LogisticRegression` carrying a JAX probe's warm
   start (`params_`, `mu_`, `anchor_`).
+- `weights_from_arrays`: a JAX `SymmetricWeights`' (nbr, w, degree) as the
+  port's weight structure, with its tensors on `device`.
+- `ranker_state_from_arrays`: a JAX label-propagation ranker's device state
+  (labels, is_labeled, prior) as tensors.
 """
 from __future__ import annotations
 
@@ -16,8 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from seesaw_tpu.indices.meta import VectorMeta
-
+from .indices.meta import VectorMeta
+from .knn_graph import SymmetricWeights
 from .indices.multiscale import MultiscaleIndex
 from .learners import LogisticRegression
 
@@ -69,3 +73,19 @@ def probe_from_arrays(params_: Optional[np.ndarray], mu_: Optional[np.ndarray],
     probe.mu_ = None if mu_ is None else np.asarray(mu_, np.float32)
     probe.anchor_ = None if anchor_ is None else np.asarray(anchor_, np.float32)
     return probe
+
+
+def weights_from_arrays(nbr: np.ndarray, w: np.ndarray, degree: np.ndarray,
+                        device) -> SymmetricWeights:
+    weights = SymmetricWeights(nbr=np.array(nbr, np.int32), w=np.array(w, np.float32),
+                               degree=np.array(degree, np.float32))
+    weights.device_arrays(device)
+    return weights
+
+
+def ranker_state_from_arrays(labels: np.ndarray, is_labeled: np.ndarray,
+                             prior: np.ndarray, device):
+    """(labels f32, is_labeled bool, prior f32) tensors on `device`."""
+    return (to_tensor(np.asarray(labels, np.float32), device),
+            to_tensor(np.asarray(is_labeled, bool), device),
+            to_tensor(np.asarray(prior, np.float32), device))

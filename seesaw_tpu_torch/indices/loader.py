@@ -2,8 +2,8 @@
 
 Counterpart of `seesaw_tpu.indices.interface.AccessMethod.load`. The JAX
 package writes its own class path into `info.json`'s constructor string;
-here that string maps to the port's class, so both packages read the same
-on-disk index unchanged. Loads are memoized per (path, options, device) in a
+here that string is a key that maps to the port's class (a string, not an
+import), so both packages read the same on-disk index unchanged. Loads are memoized per (path, options, device) in a
 cache of this package's own, so a process that loads one root through both
 packages never gets the JAX index back from this loader.
 """
@@ -14,8 +14,7 @@ from pathlib import Path
 
 import torch
 
-from seesaw_tpu.runtime.cache import LocalCache
-
+from ..runtime.cache import LocalCache
 from .multiscale import MultiscaleIndex
 
 CONSTRUCTORS = {

@@ -8,8 +8,12 @@ fused scan (`ops.fused_scoring`): the CUDA kernel on a CUDA index, its plain
 version on a CPU index. The per-session exclusion mask stays on the device
 across clicks; a click ships only the newly excluded frame ordinals.
 
+Graph loops rank externally produced per-vector scores with
+`rank_by_scores`; a staged KnnProp2 round runs fused inside it
+(`_rank_deferred_propagation`).
+
 Left out here (see ROADMAP.md): the mesh-sharded index, request coalescing,
-`rank_by_scores`, `save` and the multi-reg deferred round. Dropped because
+`save` and the multi-reg deferred round. Dropped because
 the GPU does not need them: the 1024-frame padding of the Pallas block
 granularity, the routing of int8 around the kernel, and the power-of-two row
 buckets that bounded jit recompiles.
@@ -25,15 +29,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from seesaw_tpu.box_utils import max_iou_per_left
-from seesaw_tpu.indices.interface import AccessMethod
-from seesaw_tpu.indices.meta import VectorMeta, next_pow2
-from seesaw_tpu.labeldb import LabelDB
-from seesaw_tpu.query_interface import InteractiveQuery
-from seesaw_tpu.runtime.bitmap import BitMap, FrozenBitMap
-
+from ..box_utils import max_iou_per_left
+from ..labeldb import LabelDB
+from ..models.registry import load_embedding
 from ..ops import frame_scoring
 from ..ops.fused_scoring import query_program_fused_incr
+from ..ops.propagation import (
+    DeferredPropagation, PropagationResult, propagate, propagate_rank, rank_padded,
+)
+from ..query_interface import InteractiveQuery
+from ..runtime.bitmap import BitMap, FrozenBitMap
+from .interface import AccessMethod
+from .meta import VectorMeta, next_pow2
 
 
 class _ExclEntry:
@@ -166,10 +173,11 @@ class MultiscaleIndex(AccessMethod):
             boxes=torch.from_numpy(meta.boxes[flat_rows]).to(dev),
             zoom=torch.from_numpy(meta.zoom_level[flat_rows]).to(dev),
             row_scale=row_scale, frame_scale=frame_scale, base_excluded=base,
+            pad_rows=torch.from_numpy(flat_rows).to(dev),
         )
 
     def _set_device_state(self, *, V, valid, boxes, zoom, row_scale,
-                          frame_scale, base_excluded):
+                          frame_scale, base_excluded, pad_rows=None):
         self._V = V
         self._valid = valid
         self._tile_bound = int(valid.shape[1])
@@ -179,6 +187,9 @@ class MultiscaleIndex(AccessMethod):
         self._frame_scale = frame_scale
         self._max_zoom = max(self.meta.max_zoom_level, 1)
         self._base_excluded_mask = base_excluded
+        # exact row of each padded row (ragged tiling), or None when the
+        # padded layout is the exact one (uniform tiling, device-built)
+        self._pad_rows = pad_rows
         self._excl_lock = threading.Lock()
         self._excl_entries = OrderedDict()  # id(BitMap) -> _ExclEntry
         self._excl_base = None  # device mask for exclude=None
@@ -481,6 +492,81 @@ class MultiscaleIndex(AccessMethod):
                       "diverged": False}
         return out
 
+    def rank_by_scores(
+        self,
+        scores,  # (N,) per-vector scores in exact layout, or DeferredPropagation
+        *,
+        topk: int,
+        shortlist_size: Optional[int] = None,
+        exclude: Optional[BitMap] = None,
+        agg_method: str = "avg_score",
+        aug_larger: str = "all",
+        aug_weight: str = "level_max",
+    ) -> dict:
+        """Rank frames by externally produced per-vector scores (label
+        propagation) with the same shortlist + augmentation tail as query().
+        A DeferredPropagation marker runs the staged KnnProp2 round (click
+        scatter + Jacobi propagation + this ranking) fused."""
+        if shortlist_size is None or shortlist_size < topk:
+            shortlist_size = max(topk * 5, shortlist_size or 0)
+        rank = dict(
+            shortlist_size=min(shortlist_size, self.n_frames),
+            topk=min(topk, self.n_frames),
+            aug_larger=aug_larger, aug_weight=aug_weight,
+            agg_method=agg_method, max_zoom=self._max_zoom,
+        )
+        if isinstance(scores, DeferredPropagation):
+            return self._rank_deferred_propagation(scores.ranker, exclude=exclude, rank=rank)
+        mask, new_ids, token = self._device_exclusion(exclude)
+        s = torch.as_tensor(scores, dtype=torch.float32).to(self.device)
+        if s.shape[0] != self.meta.n_vectors:
+            raise ValueError(f"{s.shape[0]} scores for {self.meta.n_vectors} vectors")
+        res, new_mask = rank_padded(s, self._pad_rows, self._valid, self._boxes,
+                                    self._zoom, mask, new_ids, **rank)
+        self._commit_exclusion(token, new_mask)
+        return self._format_result(res)[0]
+
+    def _rank_deferred_propagation(self, ranker, *, exclude, rank) -> dict:
+        """The fused KnnProp2 round: the staged clicks scatter into the
+        device label state, up to one segment (`lp.dispatch_iters`) of Jacobi
+        steps runs, the scores are ranked, and the ranked result, the
+        iteration count and the converged flag come back in ONE transfer.
+        A round that needs more than one segment resumes segment by segment
+        from the partial iterate (already label-clamped, so the sequence
+        continues exactly) and ranks again over an empty exclusion delta
+        against the round's new mask. The ranker's state is committed last."""
+        lp = ranker.lp
+        nbr, w, degree = lp.graph()
+        mask, new_ids, token = self._device_exclusion(exclude)
+        labels_dev, il_dev, ids, vals = ranker._deferred_state()
+        stop = int(min(lp.dispatch_iters or lp.max_iter, lp.max_iter))
+        res, new_mask, scores, labels2, il2, i, done = propagate_rank(
+            nbr, w, degree, ranker.prior_scores, labels_dev, il_dev, ids, vals,
+            ranker._propagation_start(), self._pad_rows, self._valid, self._boxes,
+            self._zoom, mask, new_ids,
+            reg_lambda=float(lp.reg_lambda), epsilon=lp.epsilon, stop_at=stop, **rank,
+        )
+        out, (i_h, done_h) = self._format_result(res, i.float(), done.float())
+        n_iter, converged, reads = int(i_h[0]), bool(done_h[0]), 1
+        if not converged and n_iter < lp.max_iter:
+            pr = propagate(
+                nbr, w, degree, ranker.prior_scores, labels2, il2, scores,
+                reg_lambda=float(lp.reg_lambda), max_iter=lp.max_iter - n_iter,
+                epsilon=lp.epsilon, dispatch_iters=lp.dispatch_iters,
+            )
+            scores, converged = pr.scores, pr.converged
+            n_iter, reads = n_iter + pr.n_iter, reads + pr.host_reads
+            res, new_mask = rank_padded(
+                scores, self._pad_rows, self._valid, self._boxes, self._zoom,
+                new_mask, self._new_ids_tensor(np.zeros(0, dtype=np.int64)), **rank,
+            )
+            out = self._format_result(res)[0]
+            reads += 1
+        self._commit_exclusion(token, new_mask)
+        ranker._commit_deferred(scores, labels2, il2, PropagationResult(
+            scores=scores, n_iter=n_iter, converged=converged, host_reads=reads))
+        return out
+
     def _format_result(self, res, *extras: torch.Tensor):
         """QueryResult (+ extra f32 tensors) -> host, in ONE transfer of a
         packed f64 buffer (exact for f32 values and for ids below 2^53).
@@ -522,6 +608,10 @@ class MultiscaleIndex(AccessMethod):
             device_dtype=self.device_dtype,
         )
 
+    def get_knng_path(self, name: str = "") -> str:
+        assert self.path is not None
+        return str(Path(self.path) / "knn_graph" / name)
+
     # -- loading -------------------------------------------------------------
     @staticmethod
     def from_path(index_path: str, *, device, embedding=None, **options) -> "MultiscaleIndex":
@@ -537,7 +627,7 @@ class MultiscaleIndex(AccessMethod):
             meta, order = VectorMeta.from_arrays(z["dbidx"], z["zoom_level"], z["boxes"])
             vectors = z["vectors"][order]
         if embedding is None and info.get("model"):
-            embedding = _load_embedding(info["model"])
+            embedding = load_embedding(info["model"])
         device_dtype = options.get("device_dtype")
         if device_dtype is None:  # same rule as the JAX index
             device_dtype = "bfloat16" if vectors.size * 4 > 4 * 1024**3 else "float32"
@@ -547,19 +637,6 @@ class MultiscaleIndex(AccessMethod):
             device_dtype=device_dtype,
             int8_scale=options.get("int8_scale", "row"),
         )
-
-
-def _load_embedding(model: str):
-    """Only the framework-free hash embeddings load here; CLIP is a later
-    slice of the port."""
-    if not model.startswith("hash-"):
-        raise NotImplementedError(
-            f"embedding {model!r} needs the CLIP towers, not ported yet; "
-            "pass embedding= to from_path"
-        )
-    from seesaw_tpu.models.registry import load_embedding
-
-    return load_embedding(model)
 
 
 class BoxFeedbackQuery(InteractiveQuery):

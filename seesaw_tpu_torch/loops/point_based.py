@@ -1,17 +1,15 @@
 """Point-based loops: rank by one query vector, refine the vector.
 
 Counterpart of `seesaw_tpu/loops/point_based.py`; the loop contract
-(`LoopBase`, start policies) is the JAX package's own, which is
-framework-free.
+(`LoopBase`, start policies) is the port's copy in `loops.loop_base`.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from seesaw_tpu.loops.loop_base import LoopBase
-
 from ..learners import LogisticRegression
 from ..ops.frame_scoring import DeferredRocchio, DeferredVector
+from .loop_base import LoopBase
 
 
 class PointBased(LoopBase):

@@ -2,6 +2,7 @@
 (counterpart of `seesaw_tpu/loops/registry.py`)."""
 from __future__ import annotations
 
+from .graph_based import KnnProp2
 from .point_based import LogReg2, Plain, RandomResults, RocchioUpdate
 
 REGISTRY = {
@@ -9,6 +10,7 @@ REGISTRY = {
     "log_reg2": LogReg2,
     "rocchio_update": RocchioUpdate,
     "random": RandomResults,
+    "knn_prop2": KnnProp2,
 }
 
 

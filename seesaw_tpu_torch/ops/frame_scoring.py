@@ -304,6 +304,29 @@ def query_program_incr(
     return res, excluded
 
 
+def rank_frames_from_scores(
+    scores, valid, boxes, zoom, excluded, *, shortlist_size: int, topk: int,
+    aug_larger: str = "all", aug_weight: str = "level_max",
+    agg_method: str = "avg_score", max_zoom: int = 8,
+) -> QueryResult:
+    """Ranking tail over externally produced per-tile scores in the padded
+    layout (graph loops: propagated label scores)."""
+    return _rank_frames(
+        scores, valid, boxes, zoom, excluded,
+        shortlist_size=shortlist_size, topk=topk, aug_larger=aug_larger,
+        aug_weight=aug_weight, agg_method=agg_method, max_zoom=max_zoom,
+    )
+
+
+def rank_frames_from_scores_incr(
+    scores, valid, boxes, zoom, excluded, new_excluded_ids, **kw,
+) -> tuple[QueryResult, torch.Tensor]:
+    """rank_frames_from_scores after merging the click's new exclusions;
+    returns (result, updated mask)."""
+    excluded = apply_new_exclusions(excluded, new_excluded_ids)
+    return rank_frames_from_scores(scores, valid, boxes, zoom, excluded, **kw), excluded
+
+
 def rank_from_frame_max(
     vectors: torch.Tensor,  # (F*T, D)
     valid: torch.Tensor,  # (F, T)

@@ -5,8 +5,16 @@ bench_session_rounds): a frame-major matrix of tile vectors made on the
 device from a seeded generator, 8 tiles per frame in `bench.py` build_db's
 box and zoom pattern, `MultiscaleIndex.from_device_arrays` with no host
 mirror, and a Session driven by a simulated user who accepts about 30% of
-the results. `chip_smoke.py` and `utils/profile_round.py` drive it on the
-card; the tests drive it on the CPU at a small size.
+the results.
+
+The KnnProp2 graph round as `bench.py` bench_graph_10M drives it
+(`_drive_knnprop_rounds`): a window-local kNN graph made on the device
+(`window_local_graph`), a `LabelPropagationRanker2` with the configured
+options, and rank -> simulated labels -> `ranker.update` per round, each
+feedback round fused into the next ranking.
+
+`chip_smoke.py` and `utils/profile_round.py` drive these on the card; the
+tests drive them on the CPU at a small size.
 """
 from __future__ import annotations
 
@@ -16,11 +24,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from seesaw_tpu.basic_types import Box, IndexSpec, SessionParams
-from seesaw_tpu.indices.meta import VectorMeta
-
+from ..basic_types import Box, IndexSpec, SessionParams
+from ..indices.meta import VectorMeta
 from ..indices.multiscale import MultiscaleIndex
-from ..ops import fused_scoring
+from ..knn_graph import SymmetricWeights
+from ..loops.knn_methods import LabelPropagationRanker2
+from ..ops import fused_scoring, spmv
+from ..ops.propagation import DeferredPropagation
+from ..runtime.bitmap import BitMap
 from ..session import Session
 from .profiling import annotate
 
@@ -131,3 +142,84 @@ def drive_session(idx: MultiscaleIndex, params: SessionParams, rounds: int,
     if len(flat) != len(set(flat)):
         raise AssertionError("the session repeated a dbidx")
     return next_ms, round_ms, syncs
+
+
+# seesaw_tpu/configs.py "knn_prop2" ranker options (the graph comes apart)
+KNNPROP_OPTIONS = dict(normalize_scores=True, normalize_epsilon=0.1,
+                       sigmoid_before_propagate=True, calib_a=10.0, calib_b=-5.0,
+                       prior_weight=1.0)
+
+
+def knnprop_ranker(weights: SymmetricWeights, device, *, warm_start: bool = False,
+                   ) -> LabelPropagationRanker2:
+    return LabelPropagationRanker2(weights=weights, device=device,
+                                   warm_start=warm_start, **KNNPROP_OPTIONS)
+
+
+def window_local_graph(n: int, K: int, device, generator: torch.Generator,
+                       *, window: int = 400, local_share: float = 0.97) -> SymmetricWeights:
+    """The (n, K) graph of `bench.py` _make_window_local_edges, made on
+    `device`: 97% of the neighbours uniform within +-400 rows of their row
+    (clipped to the ends), 3% uniform over all rows, weights uniform in
+    [0.1, 1.0), degree = row sum. Rows may repeat a neighbour or list
+    themselves, as there."""
+    dev = torch.device(device)
+    base = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    nbr = torch.randint(-window, window + 1, (n, K), dtype=torch.int32, device=dev,
+                        generator=generator)
+    nbr += base
+    nbr.clamp_(0, n - 1)
+    far = torch.rand(n, K, device=dev, generator=generator) >= local_share
+    nbr[far] = torch.randint(0, n, (int(far.sum()),), dtype=torch.int32, device=dev,
+                             generator=generator)
+    del far
+    w = torch.rand(n, K, device=dev, generator=generator) * 0.9 + 0.1
+    return SymmetricWeights(nbr=nbr, w=w, degree=w.sum(dim=1))
+
+
+def drive_knnprop_rounds(idx: MultiscaleIndex, ranker: LabelPropagationRanker2,
+                         rounds: int, *, seed: int = 0, batch_size: int = 3,
+                         shortlist_size: int = 50) -> dict:
+    """`rounds` KnnProp2 serving rounds through the loop's pieces: rank by
+    the ranker's scores (a staged round runs fused inside the ranking) ->
+    the simulated user labels the batch's first tiles, 30% accepted ->
+    `ranker.update`. Returns per-round host-clock ms (each round ends in a
+    device sync), and for the rounds whose ranking propagated: Jacobi
+    iterations, host reads and kernel launches. On a CUDA index every such
+    round must launch the Jacobi kernel."""
+    rng = np.random.default_rng(seed)
+    qvec = rng.normal(size=idx.dim).astype(np.float32)
+    ranker.set_base_scores(idx.score_device(qvec / np.linalg.norm(qvec)))
+    meta = idx.meta
+    returned = BitMap()
+    out = dict(round_ms=[], propagated=[], iters=[], host_reads=[], launches=[])
+    for r in range(rounds):
+        before = spmv.jacobi_step.launches
+        t0 = time.perf_counter()
+        scores = ranker.current_scores_any()
+        fused = isinstance(scores, DeferredPropagation)
+        with annotate("knnprop.rank"):
+            res = idx.rank_by_scores(scores, topk=batch_size,
+                                     shortlist_size=shortlist_size, exclude=returned,
+                                     agg_method="avg_score", aug_larger="all")
+        got = [int(d) for d in res["dbidxs"]]
+        if len(got) != batch_size:
+            raise AssertionError(f"round {r}: {len(got)} results")
+        returned.update(got)
+        with annotate("knnprop.update"):
+            rows = meta.frame_starts[np.searchsorted(meta.frame_dbidx, got)]
+            ranker.update(rows, (rng.random(len(rows)) < 0.3).astype(np.float64))
+        sync(idx.device)
+        out["round_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["propagated"].append(fused)
+        if fused:
+            launched = spmv.jacobi_step.launches - before
+            if idx.device.type == "cuda" and launched == 0:
+                raise AssertionError(f"round {r}: the round did not launch the kernel")
+            res_p = ranker.last_result
+            out["iters"].append(res_p.n_iter)
+            out["host_reads"].append(res_p.host_reads)
+            out["launches"].append(launched)
+    if len(returned) != rounds * batch_size:
+        raise AssertionError("the rounds repeated a dbidx")
+    return out

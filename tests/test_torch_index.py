@@ -24,8 +24,10 @@ from seesaw_tpu.indices.multiscale import MultiscaleIndex as JaxIndex  # noqa: E
 from seesaw_tpu.runtime.bitmap import BitMap  # noqa: E402
 from seesaw_tpu_torch import convert  # noqa: E402
 from seesaw_tpu_torch.indices.loader import load_index  # noqa: E402
+from seesaw_tpu_torch.indices.meta import VectorMeta as TMeta  # noqa: E402
 from seesaw_tpu_torch.indices.multiscale import MultiscaleIndex  # noqa: E402
 from seesaw_tpu_torch.ops.frame_scoring import DeferredLogistic  # noqa: E402
+from seesaw_tpu_torch.runtime.bitmap import BitMap as TBitMap  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +57,11 @@ def _make_arrays(n_images=30, d=32, seed=0):
     return V, meta
 
 
+def _tmeta(meta):
+    """The same metadata as the port's own VectorMeta."""
+    return TMeta(**{f: getattr(meta, f) for f in TMeta.__dataclass_fields__})
+
+
 def _query(idx, q, exclude, **kw):
     r = idx.query(vector=q, topk=4, shortlist_size=12, exclude=exclude, **kw)
     return (list(r["dbidxs"]), [a["score"] for a in r["activations"]],
@@ -68,7 +75,7 @@ def test_from_path_query_parity(root):
     # the port's loader keeps a cache of its own: same key, other object
     assert load_index(root, device="cpu", options={"use_pallas": True}) is tidx
     rng = np.random.default_rng(1)
-    excl_j, excl_t = BitMap(), BitMap()
+    excl_j, excl_t = BitMap(), TBitMap()
     for _ in range(4):
         q = rng.normal(size=tidx.dim).astype(np.float32)
         want, got = _query(jidx, q, excl_j), _query(tidx, q, excl_t)
@@ -86,14 +93,14 @@ def test_from_path_query_parity(root):
 
 def test_incremental_exclusion_matches_full_rebuild():
     V, meta = _make_arrays()
-    idx = MultiscaleIndex(device="cpu", vectors=V, meta=meta)
-    oracle = MultiscaleIndex(device="cpu", vectors=V, meta=meta)
+    idx = MultiscaleIndex(device="cpu", vectors=V, meta=_tmeta(meta))
+    oracle = MultiscaleIndex(device="cpu", vectors=V, meta=_tmeta(meta))
     jidx = JaxIndex(vectors=V, meta=meta, use_pallas=True)
     q = np.random.default_rng(1).normal(size=V.shape[1]).astype(np.float32)
-    returned = BitMap()  # one evolving bitmap, like InteractiveQuery.returned
+    returned = TBitMap()  # one evolving bitmap, like InteractiveQuery.returned
     for r in range(6):
         got = _query(idx, q, returned)
-        fresh = BitMap(returned.to_array())  # always a full rebuild
+        fresh = TBitMap(returned.to_array())  # always a full rebuild
         want = _query(oracle, q, fresh)
         jwant = _query(jidx, q, BitMap(returned.to_array()))
         assert got[0] == want[0] == jwant[0], f"round {r}"
@@ -112,10 +119,10 @@ def test_incremental_exclusion_matches_full_rebuild():
 def test_from_device_arrays_and_row_sums(dtype):
     V, meta = _make_arrays(seed=2)
     jidx = JaxIndex(vectors=V, meta=meta, device_dtype=dtype, use_pallas=True)
-    host = MultiscaleIndex(device="cpu", vectors=V, meta=meta, device_dtype=dtype)
+    host = MultiscaleIndex(device="cpu", vectors=V, meta=_tmeta(meta), device_dtype=dtype)
     dev = convert.index_from_device_state(
         np.asarray(jidx._V), np.asarray(jidx._valid), np.asarray(jidx._boxes),
-        np.asarray(jidx._zoom), meta, device="cpu",
+        np.asarray(jidx._zoom), _tmeta(meta), device="cpu",
         row_scale=None if jidx._row_scale is None else np.asarray(jidx._row_scale),
     )
     assert dev.vectors is None
@@ -132,7 +139,7 @@ def test_from_device_arrays_and_row_sums(dtype):
     np.testing.assert_allclose(dev.vectors_for_rows(rows), V[rows], atol=atol)
 
     q = rng.normal(size=V.shape[1]).astype(np.float32)
-    returned = BitMap()
+    returned = TBitMap()
     for _ in range(3):
         got_q = _query(dev, q, returned)
         want = _query(jidx, q, BitMap(returned.to_array()))
@@ -148,7 +155,7 @@ def test_low_precision_storage_matches_jax(dtype, int8_scale):
     V, meta = _make_arrays(n_images=40, seed=3)
     jidx = JaxIndex(vectors=V, meta=meta, device_dtype=dtype,
                     int8_scale=int8_scale, use_pallas=True)
-    tidx = MultiscaleIndex(device="cpu", vectors=V, meta=meta,
+    tidx = MultiscaleIndex(device="cpu", vectors=V, meta=_tmeta(meta),
                            device_dtype=dtype, int8_scale=int8_scale)
     n = meta.n_frames * tidx._tile_bound
     jV = np.asarray(jidx._V)[:n]
@@ -168,8 +175,8 @@ def test_low_precision_storage_matches_jax(dtype, int8_scale):
 
 def test_diverged_fit_raises_before_the_exclusion_commit():
     V, meta = _make_arrays(seed=5)
-    idx = MultiscaleIndex(device="cpu", vectors=V, meta=meta)
-    excl = BitMap()
+    idx = MultiscaleIndex(device="cpu", vectors=V, meta=_tmeta(meta))
+    excl = TBitMap()
     q = np.random.default_rng(6).normal(size=V.shape[1]).astype(np.float32)
     first = _query(idx, q, excl)
     excl.update(first[0])

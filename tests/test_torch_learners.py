@@ -12,6 +12,7 @@ from seesaw_tpu.indices.meta import VectorMeta
 from seesaw_tpu.indices.multiscale import MultiscaleIndex as JaxIndex
 from seesaw_tpu.learners import LogisticRegression as JaxLR
 from seesaw_tpu_torch import convert
+from seesaw_tpu_torch.indices.meta import VectorMeta as TMeta
 
 OPTS = dict(class_weights="balanced", scale="centered", reg_lambda=5.0,
             fit_intercept=False, max_iter=50)
@@ -33,7 +34,8 @@ def _db(seed, n_frames=50, tiles=4, d=16):
 def test_deferred_fit_and_warm_start_match_jax(device_dtype):
     V, meta = _db(5)
     jidx = JaxIndex(vectors=V, meta=meta, device_dtype=device_dtype, use_pallas=True)
-    tidx = convert.index_from_arrays(V, meta, device="cpu", device_dtype=device_dtype)
+    tmeta = TMeta(**{f: getattr(meta, f) for f in TMeta.__dataclass_fields__})
+    tidx = convert.index_from_arrays(V, tmeta, device="cpu", device_dtype=device_dtype)
     rng = np.random.default_rng(6)
     tvec = rng.normal(size=V.shape[1]).astype(np.float32)
     tvec /= np.linalg.norm(tvec)
