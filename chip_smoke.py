@@ -7,8 +7,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. device check: a CUDA device must be present; TF32 is switched off.
 2. build the kernels from `seesaw_tpu_torch/csrc` with nvcc, one process
-   per source, started together: the fused frame-max scan and the kNN
-   SpMV / Jacobi step.
+   per source, started together: the fused frame-max scan, the kNN
+   SpMV / Jacobi step and the pair attention of the CLIP towers.
 3. each kernel vs its plain PyTorch version on the card, with CUDA-event
    times (kernel and plain version alternated) and the time of the nearest
    single PyTorch call:
@@ -23,19 +23,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 4. port sessions on the card against the same sessions on the CPU, on a
    small synthetic root: plain, rocchio_update and log_reg2, then knn_prop2
    over a k=5 graph saved beside the index; same dbidxs every round, and the
-   kernels launched every round (knn_prop2: every feedback round).
+   kernels launched every round (knn_prop2: every feedback round). The
+   root's info.json names `clip-custom:<dir>`, a small CLIP artifact (64-wide
+   heads, embed_dim = the index's dim, seeded weights): each session loads
+   it through `MultiscaleIndex.from_path` and the registry on its own
+   device, the text vectors agree, and the first CUDA session's text query
+   launches the attention kernel once per text layer.
 5. the per-click main path at deployment scale, as the JAX package's bench
    drives it (bench.py bench_session_rounds): 10M x 512 bf16 vectors made on
    the device from a seed, `MultiscaleIndex.from_device_arrays`,
    rocchio_update and log_reg2 sessions (batch 3, shortlist 50, a simulated
    user accepting ~30%), then a shorter rocchio_update session on int8
-   storage with per-row scales. The scan kernel's launch counter must rise
-   every round.
+   storage with per-row scales. Each session's text query (round 0) goes
+   through the ViT-B/32 text tower on the card (`ClipEmbedding`, seeded
+   random weights). The scan kernel's launch counter must rise every round,
+   the attention kernel's by 12 (one per text layer) for each text query.
 6. the KnnProp2 graph round at deployment scale (bench.py bench_graph_10M):
    phase 5's int8 index, a 10M x 32 window-local graph made on the device,
    8 rounds of rank -> labels -> update with the configured ranker, then 8
    with warm_start. The Jacobi kernel's launch counter must rise every round
    after round 0, and each round reads the host once per segment.
+7. the CLIP towers (`seesaw_tpu_torch.models.clip`), all at full width:
+   a. the pair-attention kernel against its plain version at the towers'
+      shapes (ViT-B/32 vision B=1024 f32 and bf16; text B=1 and B=64 causal;
+      ViT-B/16 vision L=197; ViT-L/14 vision L=257 f32 and bf16; a small
+      ragged case each way), CUDA-event times alternated, library call
+      `scaled_dot_product_attention` on the head-split layout;
+   b. ViT-B/32 towers on the card against the same on the CPU (the
+      seeded weights of phase 5, a few strings and 224 x 224 images, f32),
+      12 attention launches per tower call;
+   c. text-encode latency: p50 over 20 distinct strings, cache bypassed;
+   d. vision throughput: `encode_image_batch` at B=1024 in f32 and bf16,
+      images/s, the attention kernel's share of the forward, peak memory.
 
 The line before the last is the kernel record (JSON); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -65,6 +84,28 @@ TOL = {  # kernel vs plain version, same bytes in
 # another order (the JAX package's bar between its windowed and dense SpMV)
 SPMV_TOL = dict(rtol=2e-5, atol=2e-6)
 GRAPH_K = 32  # bench.py bench_graph_10M
+# pair attention vs plain version, same inputs: f32 sums of 64-term logits
+# and L-term P.V in another order. bf16: under one output ulp (2^-8 to 2^-7
+# relative), so each output must round to the plain version's bf16 value
+# (0.0 measured); a kernel that skipped rounding p to bf16 before P.V moves
+# ~40% of the outputs by an ulp or more and fails
+ATTN_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-8, atol=1e-5)}
+ATTN_CASES = (  # (name, B, L, W, causal, dtype): the towers' shapes
+    ("text query", 1, 77, 512, True, "float32"),
+    ("text batch", 64, 77, 512, True, "float32"),
+    ("vit-b32 vision", 1024, 50, 768, False, "float32"),
+    ("vit-b32 vision", 1024, 50, 768, False, "bfloat16"),
+    ("vit-b16 vision", 256, 197, 768, False, "float32"),
+    ("vit-l14 vision", 64, 257, 1024, False, "float32"),
+    ("vit-l14 vision", 64, 257, 1024, False, "bfloat16"),
+    ("small ragged", 3, 13, 128, True, "float32"),
+    ("small ragged", 5, 33, 256, False, "bfloat16"),
+)
+# CLIP ViT-B/32 towers on the card vs on the CPU, f32 with TF32 off, unit
+# embeddings: 12 layers of f32 GEMMs summed in another order
+TOWER_TOL = dict(rtol=1e-4, atol=1e-4)
+TOWER_LAYERS = 12  # ViT-B/32: 12 text and 12 vision layers, one launch each
+VISION_BATCH = 1024
 # data-sheet peaks of one H100 SXM at 700 W: HBM bytes/s, and operations/s by
 # input type (f32 outside the tensor cores; bf16 and int8 dense tensor rates)
 PEAK_BYTES = 3.35e12
@@ -300,14 +341,40 @@ def check_spmv(dev, gen):
 
 
 # -- phase 4 -----------------------------------------------------------------
+# the synthetic root's CLIP: kernel-eligible towers (64-wide heads, an even
+# head count), embed_dim set to the index's dim
+SMOKE_CLIP = dict(image_size=32, patch_size=16, vision_width=128, vision_layers=1,
+                  vision_heads=2, vocab_size=99, context_length=16, text_width=128,
+                  text_layers=2, text_heads=2)
+
+
+def write_clip_artifact(path: Path, d: int, seed=0) -> str:
+    """A converted-checkpoint directory (params.npz + info.json, no vocab:
+    the hash tokenizer) of seeded weights; returns its `clip-custom:` name."""
+    import torch
+
+    from seesaw_tpu_torch.models.clip import (ClipConfig, config_to_info, init_params,
+                                              save_params_npz)
+
+    cfg = ClipConfig(embed_dim=d, **SMOKE_CLIP)
+    path.mkdir(parents=True)
+    save_params_npz(init_params(cfg, torch.Generator().manual_seed(seed)),
+                    str(path / "params.npz"))
+    (path / "info.json").write_text(json.dumps(dict(config_to_info(cfg), variant="custom")))
+    return f"clip-custom:{path}"
+
+
 def write_synthetic_root(root: Path, n_images=80, d=32, seed=0):
     """A planted multiscale index in the on-disk format both packages read
-    (vectors.npz + info.json), like tests/synth.py: positives hold a tile
-    near the text query's hash embedding."""
-    from seesaw_tpu_torch import GlobalDataManager, HashEmbedding
+    (vectors.npz + info.json), like tests/synth.py, whose info.json names a
+    small CLIP artifact written beside the root: positives hold a tile near
+    that model's text embedding of the query. Returns (gdm, gt, model name)."""
+    from seesaw_tpu_torch import GlobalDataManager
+    from seesaw_tpu_torch.models.registry import load_embedding
 
+    model = write_clip_artifact(root.with_name(root.name + "_clip"), d, seed)
     rng = np.random.default_rng(seed)
-    qvec = HashEmbedding(d=d).from_string(string="a dog")
+    qvec = load_embedding(model, "cpu").from_string(string="a dog")
     gdm = GlobalDataManager(str(root))
     ds = gdm.create_dataset("smoke", paths=[f"img_{i:04d}.jpg" for i in range(n_images)])
     is_pos = np.zeros(n_images, bool)
@@ -336,10 +403,10 @@ def write_synthetic_root(root: Path, n_images=80, d=32, seed=0):
              zoom_level=np.array(zoom), boxes=np.array(boxes, np.float32))
     (path / "info.json").write_text(json.dumps({
         "constructor": "seesaw_tpu.indices.multiscale.MultiscaleIndex",
-        "model": f"hash-{d}", "excluded": [],
+        "model": model, "excluded": [],
     }))
     save_knn_graph(np.stack(vecs), path / "knn_graph", k=5)
-    return gdm, gt
+    return gdm, gt, model
 
 
 def save_knn_graph(V: np.ndarray, path: Path, k: int):
@@ -367,11 +434,12 @@ SESSION_OPTIONS = {
 
 
 def small_session_rounds(gdm, gt, method, device, rounds=6):
-    """Returns the dbidxs of each round, all activation scores, and for each
+    """Returns the dbidxs of each round, all activation scores, for each
     round whether its ranking ran a staged propagation (knn_prop2) and how
-    many Jacobi kernel launches it made."""
+    many Jacobi kernel launches it made, the session's text vector, its
+    embedding, and the attention kernel's launches in its text query."""
     from seesaw_tpu_torch import Box, IndexSpec, SessionParams, make_session
-    from seesaw_tpu_torch.ops import spmv
+    from seesaw_tpu_torch.ops import attention, spmv
     from seesaw_tpu_torch.ops.propagation import DeferredPropagation
 
     opts = SESSION_OPTIONS[method]
@@ -379,7 +447,9 @@ def small_session_rounds(gdm, gt, method, device, rounds=6):
                       interactive=method, batch_size=BATCH, shortlist_size=20,
                       interactive_options=opts, index_options={"use_pallas": True})
     s = make_session(gdm, p, device=device)["session"]
+    attn_before = attention.pair_attention.launches
     s.set_text("a dog")
+    text_launches = attention.pair_attention.launches - attn_before
     out, graph_rounds = [], []
     for _ in range(rounds):
         model = s.loop.state.knn_model
@@ -396,35 +466,61 @@ def small_session_rounds(gdm, gt, method, device, rounds=6):
         s.update_state(state)
         s.refine()
     scores = [a["score"] for acts in s.acc_activations for a in acts]
-    return out, np.array(scores, np.float32), graph_rounds
+    # the string cache returns round 0's vector without a launch
+    return (out, np.array(scores, np.float32), graph_rounds, s.index.string2vec("a dog"),
+            s.index.embedding, text_launches)
 
 
 def check_sessions_cuda_vs_cpu():
     import torch
 
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.models.registry import load_embedding
     from seesaw_tpu_torch.ops import fused_scoring as fs
 
     root = ROOT / "build" / "seesaw_tpu_torch" / "smoke_root"
-    shutil.rmtree(root, ignore_errors=True)
-    gdm, gt = write_synthetic_root(root)
-    for method in ("plain", "rocchio_update", "log_reg2", "knn_prop2"):
+    artifact = root.with_name(root.name + "_clip")
+    for d in (root, artifact):
+        shutil.rmtree(d, ignore_errors=True)
+    gdm, gt, model = write_synthetic_root(root)
+    on_card = load_embedding(model, "cuda:0")
+    if load_embedding(model, "cuda") is not on_card:
+        raise AssertionError("the registry keeps two models for 'cuda' and 'cuda:0'")
+    for i, method in enumerate(("plain", "rocchio_update", "log_reg2", "knn_prop2")):
         before = fs.fused_frame_max.launches
-        on_gpu, s_gpu, graph = small_session_rounds(gdm, gt, method, torch.device("cuda"))
+        on_gpu, s_gpu, graph, tvec_gpu, emb_gpu, text_launches = small_session_rounds(
+            gdm, gt, method, torch.device("cuda"))
         torch.cuda.synchronize()
+        if emb_gpu is not on_card or not isinstance(emb_gpu, ClipEmbedding):
+            raise AssertionError(f"{method}: the CUDA index did not load {model} on the card")
+        # the first session encodes the query (one launch per text layer);
+        # the shared embedding's string cache serves the later ones
+        want = SMOKE_CLIP["text_layers"] if i == 0 else 0
+        if text_launches != want:
+            raise AssertionError(f"{method}: the text query made {text_launches} "
+                                 f"attention launches, not {want}")
         if method == "knn_prop2":  # the scan is not on the graph round
             feedback = [n for staged, n in graph if staged]
             if not feedback or min(feedback) == 0:
                 raise AssertionError(f"knn_prop2: Jacobi launches per feedback round {graph}")
         elif fs.fused_frame_max.launches - before < len(on_gpu):
             raise AssertionError(f"{method}: the CUDA session did not launch the kernel")
-        on_cpu, s_cpu, _ = small_session_rounds(gdm, gt, method, torch.device("cpu"))
+        on_cpu, s_cpu, _, tvec_cpu, emb_cpu, _ = small_session_rounds(
+            gdm, gt, method, torch.device("cpu"))
+        if emb_cpu.device.type != "cpu":
+            raise AssertionError(f"{method}: the CPU index took a model on {emb_cpu.device}")
+        # unit text vector through 2 f32 layers, TF32 off
+        np.testing.assert_allclose(tvec_gpu, tvec_cpu, rtol=1e-5, atol=1e-5)
         if on_gpu != on_cpu:
             raise AssertionError(f"{method}: cuda {on_gpu} != cpu {on_cpu}")
         err = float(np.abs(s_gpu - s_cpu).max())
-        log(f"session {method}: cuda == cpu dbidxs over {len(on_gpu)} rounds; "
-            f"max activation score diff {err!r}"
+        tvec_err = float(np.abs(tvec_gpu - tvec_cpu).max())
+        log(f"session {method} ({model.split(':')[0]} index): cuda == cpu dbidxs over "
+            f"{len(on_gpu)} rounds; max activation score diff {err!r}; text vector diff "
+            f"{tvec_err!r}; attention launches in the text query {text_launches}"
             + (f"; (staged, Jacobi launches) per round {graph}" if method == "knn_prop2" else ""))
-    shutil.rmtree(root, ignore_errors=True)
+    for d in (root, artifact):
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -448,21 +544,24 @@ def check_main_query(idx):
     torch.testing.assert_close(got.act_scores, want.act_scores, rtol=1e-5, atol=1e-5)
 
 
-def main_path(dev, gen, card):
+def main_path(dev, gen, card, clip):
     import torch
 
+    from seesaw_tpu_torch.ops import attention
     from seesaw_tpu_torch.ops import fused_scoring as fs
     from seesaw_tpu_torch.utils import rounds as R
 
     rocchio, logreg = (R.session_params(m, batch_size=BATCH, shortlist_size=SHORTLIST)
                        for m in ("rocchio_update", "log_reg2"))
     rng = np.random.default_rng(0)
-    idx = R.device_index(N_VECTORS, DIM, "bfloat16", device=dev, generator=gen)
+    idx = R.device_index(N_VECTORS, DIM, "bfloat16", device=dev, generator=gen,
+                         embedding=clip)
     check_main_query(idx)
     log("main query: kernel path == plain full-score path (bf16, 10M rows)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fs.fused_frame_max.launches = 0  # count only the main path's launches
+    # count only the main path's launches
+    fs.fused_frame_max.launches = attention.pair_attention.launches = 0
     for name, params, rounds, dtype in (
         ("rocchio_update bf16", rocchio, 10, "bfloat16"),
         ("log_reg2 bf16", logreg, 10, "bfloat16"),
@@ -471,9 +570,16 @@ def main_path(dev, gen, card):
         if dtype == "int8" and idx.device_dtype != "int8":
             del idx
             torch.cuda.empty_cache()
-            idx = R.device_index(N_VECTORS, DIM, "int8", device=dev, generator=gen)
-        next_ms, round_ms, syncs = R.drive_session(idx, params, rounds, rng)
+            idx = R.device_index(N_VECTORS, DIM, "int8", device=dev, generator=gen,
+                                 embedding=clip)
+        before = attention.pair_attention.launches
+        # a text query of its own per session: the embedding caches strings
+        next_ms, round_ms, syncs = R.drive_session(idx, params, rounds, rng,
+                                                   text=f"a photo for the {name} session")
         torch.cuda.synchronize()
+        if attention.pair_attention.launches - before != TOWER_LAYERS:
+            raise AssertionError(f"{name}: the text query made "
+                                 f"{attention.pair_attention.launches - before} attention launches")
         # round 0 is the text query (no feedback yet); p50 over rounds 1..
         p50n, p50r = float(np.median(next_ms[1:])), float(np.median(round_ms[1:]))
         line = (f"[{card}] {name}: rounds={rounds} p50_session_next_ms={p50n!r} "
@@ -482,11 +588,13 @@ def main_path(dev, gen, card):
             line += f" lbfgs_host_syncs_per_round={syncs}"
         log(line)
     launches = fs.fused_frame_max.launches
+    attn_launches = attention.pair_attention.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[{card}] main path: kernel launches={launches} peak device memory GB={peak!r}")
+    log(f"[{card}] main path: kernel launches={launches} pair_attention launches="
+        f"{attn_launches} peak device memory GB={peak!r}")
     if launches < 26:
         raise AssertionError(f"only {launches} kernel launches in 26 rounds")
-    return launches, idx
+    return launches, attn_launches, idx
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -531,6 +639,155 @@ def knnprop_path(idx, dev, gen, card, rounds=8):
     return launches
 
 
+# -- phase 7 -----------------------------------------------------------------
+def attention_bound(B, L, W, causal, dtype):
+    """q, k, v read once and out written once; 2 x 2 x 64 operations per
+    query-key pair that the mask keeps (Q K^T and P V; the softmax's
+    exponentials are left out)."""
+    pairs = L * (L + 1) // 2 if causal else L * L
+    elem = 4 if dtype == "float32" else 2
+    return bound(4 * B * L * W * elem, 4 * 64 * B * (W // 64) * pairs, dtype)
+
+
+def check_attention(dev, gen):
+    """Phase 7a: the pair-attention kernel against its plain version at each
+    case of ATTN_CASES; CUDA-event times over 5 input sets (plain, kernel,
+    kernel, plain) and of scaled_dot_product_attention on the head-split
+    (B, H, L, 64) layout, split before the timed calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from seesaw_tpu_torch.ops import attention as A
+
+    records = []
+    for name, B, L, W, causal, dtype in ATTN_CASES:
+        sets = [[torch.randn(B, L, W, device=dev, generator=gen).to(getattr(torch, dtype))
+                 for _ in range(3)] for _ in range(5)]
+        q, k, v = sets[0]
+        got = A.pair_attention(q, k, v, causal=causal, heads=W // 64)
+        want = A.pair_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+        def kern(q, k, v):
+            return A.pair_attention(q, k, v, causal=causal)
+
+        def plain(q, k, v):
+            return A.pair_attention_plain(q, k, v, causal=causal)
+
+        p1, k1, k2, p2 = (cuda_ms(f, sets) for f in (plain, kern, kern, plain))
+        split = [[t.view(B, L, W // 64, 64).transpose(1, 2).contiguous() for t in qkv]
+                 for qkv in sets]
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        lib_out = library(*split[0]).transpose(1, 2).reshape(B, L, W)
+        lib_err = float((lib_out.float() - want.float()).abs().max())
+        lib_ms = cuda_ms(library, split)
+        b_ms, b_by = attention_bound(B, L, W, causal, dtype)
+        rec = dict(case=name, B=B, L=L, W=W, causal=causal, dtype=dtype,
+                   ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        log(f"attention {name} B={B} L={L} W={W} causal={causal} {dtype}: "
+            f"max_abs_err={err!r} kernel_ms={rec['ms']!r} plain_ms={rec['plain_ms']!r} "
+            f"sdpa_ms={lib_ms!r} (sdpa vs plain max_abs_err={lib_err!r}) "
+            f"bound_ms={b_ms!r} ({b_by})")
+        records.append(rec)
+        del sets, split, got, want, lib_out
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_towers(dev, params):
+    """Phase 7b: ViT-B/32 towers on the card against the same weights on the
+    CPU, f32: unit text and image embeddings within TOWER_TOL, 12 attention
+    launches per tower call on the card."""
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.ops import attention as A
+
+    on_gpu = ClipEmbedding("vit-b32", device=dev, params=params)
+    on_cpu = ClipEmbedding("vit-b32", device="cpu", params=params)
+    strings = ["a photo of a dog", "two cats on a red couch",
+               "an aerial photograph of city traffic at night", "x"]
+    px = np.random.default_rng(0).normal(size=(4, 224, 224, 3)).astype(np.float32)
+    results = {}
+    for what, run in (("text", lambda e: e.from_string(str_list=strings)),
+                      ("image", lambda e: e.from_image(preprocessed_image=px))):
+        before = A.pair_attention.launches
+        got = run(on_gpu)
+        launched = A.pair_attention.launches - before
+        if launched != TOWER_LAYERS:
+            raise AssertionError(f"{what} tower: {launched} attention launches, not {TOWER_LAYERS}")
+        want = run(on_cpu)
+        if not np.isfinite(got).all() or got.shape != (4, 512):
+            raise AssertionError(f"{what} tower: shape {got.shape} or non-finite values")
+        np.testing.assert_allclose(got, want, **TOWER_TOL)
+        results[what] = float(np.abs(got - want).max())
+    log(f"towers vit-b32 f32, cuda vs cpu: text max_abs_err={results['text']!r} "
+        f"image max_abs_err={results['image']!r} (tol {TOWER_TOL}); "
+        f"{TOWER_LAYERS} attention launches per tower call")
+
+
+def text_encode_ms(clip, n=20):
+    """Phase 7c: host ms of one text query through the text tower on the
+    card (tokenize, encode, copy back), p50 over n distinct strings; the
+    string cache is bypassed."""
+    from seesaw_tpu_torch.ops import attention as A
+
+    clip.from_string(str_list=["warm-up query"])
+    times = []
+    before = A.pair_attention.launches
+    for i in range(n):
+        t0 = time.perf_counter()
+        clip.from_string(str_list=[f"a photo of object number {i} in the street"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    if A.pair_attention.launches - before != n * TOWER_LAYERS:
+        raise AssertionError("a text query did not launch the attention kernel per layer")
+    return float(np.median(times)), times
+
+
+def vision_throughput(dev, gen, params, attn):
+    """Phase 7d: `encode_image_batch` of VISION_BATCH random 224 x 224 images
+    on the card, f32 and bf16: CUDA-event ms per forward over 3 forwards,
+    images/s, the attention kernel's share of the forward (12 launches at
+    phase 7a's ms), peak memory. Returns (records, launches)."""
+    import torch
+
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.ops import attention as A
+
+    px = torch.randn(VISION_BATCH, 224, 224, 3, device=dev, generator=gen)
+    records = []
+    A.pair_attention.launches = 0  # count only this path's launches
+    for dtype in ("float32", "bfloat16"):
+        emb = ClipEmbedding("vit-b32", device=dev, params=params, dtype=getattr(torch, dtype))
+        emb.encode_image_batch(px[:8])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = A.pair_attention.launches
+        fwd_ms = cuda_ms(emb.encode_image_batch, [(px,)] * 3)
+        out = emb.encode_image_batch(px)
+        torch.cuda.synchronize()
+        launched = A.pair_attention.launches - before
+        if launched != 5 * TOWER_LAYERS:  # warm-up + 3 timed + 1
+            raise AssertionError(f"vision {dtype}: {launched} attention launches in 5 forwards")
+        if out.shape != (VISION_BATCH, 512) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"vision {dtype}: shape {tuple(out.shape)} or non-finite values")
+        k5 = next(r for r in attn if r["case"] == "vit-b32 vision" and r["dtype"] == dtype)
+        rec = dict(dtype=dtype, forward_ms=fwd_ms, images_per_s=VISION_BATCH / fwd_ms * 1e3,
+                   attention_share=TOWER_LAYERS * k5["ms"] / fwd_ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"vision vit-b32 B={VISION_BATCH} {dtype}: forward_ms={fwd_ms!r} "
+            f"images_per_s={rec['images_per_s']!r} attention_share={rec['attention_share']!r} "
+            f"peak device memory GB={rec['peak_gb']!r}")
+        records.append(rec)
+        del emb, out
+        torch.cuda.empty_cache()
+    return records, A.pair_attention.launches
+
+
 def main() -> int:
     import torch
 
@@ -555,8 +812,9 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.load_libraries("fused_frame_max", "knn_spmv")  # one nvcc each, together
-    log(f"build fused_frame_max, knn_spmv: {time.perf_counter() - t0!r} s "
+    # one nvcc each, together
+    _build.load_libraries("fused_frame_max", "knn_spmv", "pair_attention")
+    log(f"build fused_frame_max, knn_spmv, pair_attention: {time.perf_counter() - t0!r} s "
         f"(nvcc seconds {_build.build_seconds})")
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -566,17 +824,31 @@ def main() -> int:
     torch.cuda.synchronize()
     check_sessions_cuda_vs_cpu()
     torch.cuda.synchronize()
-    launches, idx = main_path(dev, gen, card)
+    from seesaw_tpu_torch.models.clip import VARIANTS, ClipEmbedding, init_params
+
+    # the ViT-B/32 weights of phases 5 and 7, seeded random
+    clip_params = init_params(VARIANTS["vit-b32"], torch.Generator().manual_seed(0))
+    clip = ClipEmbedding("vit-b32", device=dev, params=clip_params)
+    launches, attn_launches, idx = main_path(dev, gen, card, clip)
     torch.cuda.synchronize()
     knn_launches = knnprop_path(idx, dev, gen, card)
     torch.cuda.synchronize()
     del idx
+    torch.cuda.empty_cache()
+    attn = check_attention(dev, gen)
+    check_towers(dev, clip_params)
+    text_p50, text_times = text_encode_ms(clip)
+    log(f"[{card}] text encode vit-b32 f32 (B=1, L=77): p50_ms={text_p50!r} "
+        f"ms={text_times}")
+    vision, vision_launches = vision_throughput(dev, gen, clip_params, attn)
+    torch.cuda.synchronize()
     bad = [m for m in sys.modules
            if m in ("jax", "flax") or m == "seesaw_tpu" or m.startswith("seesaw_tpu.")]
     if bad:
         raise AssertionError(f"the port imported {bad}")
 
     bf16 = next(r for r in scan if r["dtype"] == "bfloat16")
+    text_query = next(r for r in attn if r["case"] == "text query")
     log(json.dumps({"kernels": [{
         "name": "fused_frame_max", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/fused_frame_max.cu",
@@ -597,6 +869,20 @@ def main() -> int:
         "library_ms": knn["library_ms"],
         "jacobi_step_ms": knn["jacobi_ms"], "jacobi_step_plain_ms": knn["jacobi_plain_ms"],
         "jacobi_step_bound_ms": knn["jacobi_bound_ms"],
+    }, {
+        "name": "pair_attention", "route": "cuda",
+        "source": "seesaw_tpu_torch/csrc/pair_attention.cu",
+        "replaces": "seesaw_tpu/ops/pallas_attention.py:91",
+        # phase 5's text queries (12 per session); the vision forwards of 7d
+        "launches": attn_launches,
+        "launches_by_path": {"text_query_sessions": attn_launches,
+                             "vision_encode": vision_launches},
+        "max_abs_err": max(r["max_abs_err"] for r in attn),
+        # at the main path's shape (the text query: B=1, L=77, W=512, causal)
+        **{k: text_query[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+        "text_encode_p50_ms": text_p50,
+        "cases": attn, "vision_vit_b32": vision,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

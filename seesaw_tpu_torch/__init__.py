@@ -6,15 +6,16 @@ imports `torch` and nothing of `seesaw_tpu`, not even its framework-free
 modules: it keeps its own copies of those (`basic_types`, `labeldb`,
 `query_interface`, `calibration`, `box_utils`, `dataset`,
 `indices.interface`, `indices.meta`, `runtime`, `loops.loop_base`,
-`utils.transactional`, `models.embeddings`). The types a caller of the port
+`utils.transactional`, `models.embeddings`, `models.tokenizer`). The types a caller of the port
 needs are exported here, so a program that drives the port names only this
 package.
 
 Every function that holds tensors takes an explicit `device`; nothing picks
 one for the caller. The hand-written kernels on the serving path (CUDA C++
-for sm_90a in `csrc/`: the frame-max scan `ops.fused_scoring` and the kNN
-SpMV / Jacobi step `ops.spmv`) are built with `nvcc` at first use; on CPU
-tensors their plain PyTorch versions run.
+for sm_90a in `csrc/`: the frame-max scan `ops.fused_scoring`, the kNN
+SpMV / Jacobi step `ops.spmv` and the CLIP towers' attention
+`ops.attention`) are built with `nvcc` at first use; on CPU tensors their
+plain PyTorch versions run.
 """
 
 __version__ = "0.1.0"

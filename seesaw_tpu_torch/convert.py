@@ -12,6 +12,8 @@
   port's weight structure, with its tensors on `device`.
 - `ranker_state_from_arrays`: a JAX label-propagation ranker's device state
   (labels, is_labeled, prior) as tensors.
+- `clip_params_from_arrays`: a JAX `ClipModel`'s params (a nested dict of
+  numpy arrays) as the port's CLIP state dict.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from .indices.meta import VectorMeta
 from .knn_graph import SymmetricWeights
 from .indices.multiscale import MultiscaleIndex
 from .learners import LogisticRegression
+from .models.clip import ClipConfig, _flatten, _state_dict_from_flat
 
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -89,3 +92,12 @@ def ranker_state_from_arrays(labels: np.ndarray, is_labeled: np.ndarray,
     return (to_tensor(np.asarray(labels, np.float32), device),
             to_tensor(np.asarray(is_labeled, bool), device),
             to_tensor(np.asarray(prior, np.float32), device))
+
+
+def clip_params_from_arrays(tree, cfg: ClipConfig) -> dict:
+    """JAX `ClipModel` params, e.g. `jax.tree.map(np.asarray, params)`, ->
+    the state dict of the port's `ClipModel(cfg)`: flax (in, out) kernels
+    become (out, in) weights, the (kh, kw, in, out) patch kernel the patch
+    embedding's (out, kh * kw * in) weight, layer-norm scales weights.
+    Raises if a name or shape does not match `cfg`."""
+    return _state_dict_from_flat(_flatten(tree), cfg)

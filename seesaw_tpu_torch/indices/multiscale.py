@@ -615,9 +615,10 @@ class MultiscaleIndex(AccessMethod):
     # -- loading -------------------------------------------------------------
     @staticmethod
     def from_path(index_path: str, *, device, embedding=None, **options) -> "MultiscaleIndex":
-        """Read the `vectors.npz` / `info.json` that the JAX package writes.
-        Options: device_dtype, int8_scale, use_pallas (ignored); the mesh and
-        coalescing options are not ported yet."""
+        """Read the `vectors.npz` / `info.json` that the JAX package writes;
+        without `embedding`, the model `info.json` names is loaded onto
+        `device`. Options: device_dtype, int8_scale, use_pallas (ignored);
+        the mesh and coalescing options are not ported yet."""
         for opt in ("mesh", "sharded", "coalesce_ms"):
             if options.get(opt):
                 raise NotImplementedError(f"index option {opt!r} is not ported yet")
@@ -627,7 +628,7 @@ class MultiscaleIndex(AccessMethod):
             meta, order = VectorMeta.from_arrays(z["dbidx"], z["zoom_level"], z["boxes"])
             vectors = z["vectors"][order]
         if embedding is None and info.get("model"):
-            embedding = load_embedding(info["model"])
+            embedding = load_embedding(info["model"], device)
         device_dtype = options.get("device_dtype")
         if device_dtype is None:  # same rule as the JAX index
             device_dtype = "bfloat16" if vectors.size * 4 > 4 * 1024**3 else "float32"

@@ -1,2 +1,3 @@
-"""Embedding models: the framework-free hash embedding (CLIP is a later
-slice of the port)."""
+"""Embedding models: the CLIP towers (`clip`), their tokenizer and image
+preprocessing, the framework-free hash embedding, and the registry that
+resolves an index's model name."""

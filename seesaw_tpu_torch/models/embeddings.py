@@ -2,9 +2,12 @@
 
 The port's own copy of the framework-free part of
 `seesaw_tpu/models/embeddings.py`: `from_string`, `from_image` and
-`from_raw` return (n, d) float arrays. `HashEmbedding` gives deterministic
-seeded-random unit vectors per input; tests and benchmarks build synthetic
-datasets with it. The CLIP towers are a later slice of the port.
+`from_raw` return (n, d) float arrays. Implementations:
+
+- `ClipEmbedding` (`models/clip.py`): the PyTorch CLIP towers on a device,
+  the production model.
+- `HashEmbedding`: deterministic seeded-random unit vectors per input;
+  tests and benchmarks build synthetic datasets with it.
 """
 from __future__ import annotations
 

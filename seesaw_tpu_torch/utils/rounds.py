@@ -58,9 +58,12 @@ def sync(device: torch.device):
 
 
 def device_index(n_vectors: int, dim: int, dtype: str, *, device,
-                 generator: torch.Generator) -> MultiscaleIndex:
+                 generator: torch.Generator, embedding=None) -> MultiscaleIndex:
     """(n_vectors, dim) bf16 (or int8 with per-row scales) matrix of random
-    tile vectors made on `device`, all tiles valid; host metadata only."""
+    tile vectors made on `device`, all tiles valid; host metadata only. The
+    text query goes through `embedding` (a `ClipEmbedding` whose `dim` is
+    `dim`), or by default through a stub that returns seeded random
+    vectors."""
     dev = torch.device(device)
     F = n_vectors // TILES
     n = F * TILES
@@ -81,11 +84,12 @@ def device_index(n_vectors: int, dim: int, dtype: str, *, device,
         frame_starts=np.arange(0, (F + 1) * TILES, TILES, dtype=np.int32),
         frame_id=np.repeat(np.arange(F, dtype=np.int32), TILES),
     )
-    rng = np.random.default_rng(0)
-    emb = SimpleNamespace(
-        from_string=lambda string=None: rng.normal(size=dim).astype(np.float32))
+    if embedding is None:
+        rng = np.random.default_rng(0)
+        embedding = SimpleNamespace(
+            from_string=lambda string=None: rng.normal(size=dim).astype(np.float32))
     return MultiscaleIndex.from_device_arrays(
-        embedding=emb, V=V,
+        embedding=embedding, V=V,
         valid=torch.ones(F, TILES, dtype=torch.bool, device=dev),
         boxes=torch.from_numpy(_BOXES).to(dev).repeat(F, 1),
         zoom=torch.from_numpy(_ZOOM).to(dev).repeat(F),
@@ -102,15 +106,16 @@ def session_params(method: str, *, batch_size: int, shortlist_size: int) -> Sess
 
 
 def drive_session(idx: MultiscaleIndex, params: SessionParams, rounds: int,
-                  rng: np.random.Generator):
-    """Run `rounds` clicks (next, label, update_state, refine). Returns the
+                  rng: np.random.Generator, text: str = "a benchmark query"):
+    """Set the text query `text`, then run `rounds` clicks (next, label,
+    update_state, refine). Returns the
     host-clock ms of each `next` and each whole round (each ending in a
     device sync) and the LBFGS host syncs of each LogReg2 fit. On a CUDA
     index every round must launch the fused kernel. The labeling,
     update_state and refine steps are named spans in a profiler trace."""
     dataset = SimpleNamespace(get_urls=lambda b: [f"b://{int(i)}" for i in b])
     s = Session(None, dataset, idx, params)
-    s.set_text("a benchmark query")
+    s.set_text(text)
     next_ms, round_ms, syncs = [], [], []
     for r in range(rounds):
         before = fused_scoring.fused_frame_max.launches
