@@ -55,6 +55,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    c. text-encode latency: p50 over 20 distinct strings, cache bypassed;
    d. vision throughput: `encode_image_batch` at B=1024 in f32 and bf16,
       images/s, the attention kernel's share of the forward, peak memory.
+8. CLIP fine-tuning and textual feedback (`seesaw_tpu_torch.models.
+   clip_finetune`, `loops.textual`):
+   a. the attention backward kernel (K6) against its plain backward at the
+      towers' shapes (fine-tuning's B=256 for ViT-B/32 vision and text,
+      ViT-B/16, ViT-L/14, small ragged cases), f32 and bf16: two runs with
+      identical bits, CUDA-event times alternated with the plain version,
+      library call `torch.autograd.grad` through
+      `scaled_dot_product_attention` on the head-split layout (backward
+      only: the graph is built outside the timed calls);
+   b. one contrastive step of ViT-B/32 at B=8 with every parameter
+      trainable, f32: every gradient on the card against the CPU's, 24 K6
+      launches (12 vision and 12 text layers);
+   c. `CLIPFineTuner` on ViT-B/32 at B=256, lr 1e-5, weight decay 0.1,
+      warmup 2, f32 and bf16: 2 warm-up then 8 timed steps, ms a step,
+      pairs/s, K6's share of a step, peak memory; 24 K5 and 24 K6 launches
+      a step, finite losses, the last below the first; then one step with
+      the default `text/projection` config, which must launch no K6;
+   d. `textual` sessions (linear and finetune modes) on a root like phase
+      4's, on the card against the CPU: same dbidxs every round.
 
 The line before the last is the kernel record (JSON); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -106,6 +125,38 @@ ATTN_CASES = (  # (name, B, L, W, causal, dtype): the towers' shapes
 TOWER_TOL = dict(rtol=1e-4, atol=1e-4)
 TOWER_LAYERS = 12  # ViT-B/32: 12 text and 12 vision layers, one launch each
 VISION_BATCH = 1024
+# pair-attention backward vs its plain backward, same inputs: f32 as the
+# forward. bf16: an element moves by one output ulp where an f32 value (a
+# ds before its rounding, or an output) lands on a rounding boundary in one
+# version and not the other, so rtol 2^-7 (one ulp at the bottom of a
+# binade) and atol 1e-3 for outputs near 0, where one ds a rounding step off
+# (2^-8 of a ds, times a key) is many ulps of the cancelled sum; and at most
+# BWD_MAX_SHARE of the elements may differ at all (measured <= 5e-5): a
+# kernel that skipped rounding ds to bf16 before dq and dk moves about half
+BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-7, atol=1e-3)}
+BWD_MAX_SHARE = 1e-3
+BWD_CASES = (  # (name, B, L, W, causal): fine-tuning's batch at the towers' shapes
+    ("vit-b32 vision", 256, 50, 768, False),
+    ("text", 256, 77, 512, True),
+    ("vit-b16 vision", 64, 197, 768, False),
+    ("vit-l14 vision", 32, 257, 1024, False),
+    ("small ragged", 3, 13, 128, True),
+    ("small ragged", 5, 1, 256, False),
+)
+# ViT-B/32 gradients on the card vs the CPU, f32 with TF32 off: each
+# tensor's max difference over its own max (floored at 1e-3 of the largest
+# gradient of the model, for tensors whose gradient is zero up to rounding,
+# as the k_proj biases'), after 12 layers forward and back in another order
+# (measured 6.1e-6)
+GRAD_TOL = 1e-4
+FT_BATCH = 256  # seesaw_tpu/models/clip_finetune.py:79-84 measured B=256
+FT_CONFIG = {"opt_config": {"": {"lr": 1e-5, "weight_decay": 0.1}}, "warmup": 2}
+FT_WARMUP, FT_STEPS = 2, 8
+_TEXTUAL = dict(image_loss_weight=0.5, vector_box_min_iou=0.2, num_warmup_steps=4,
+                rounds=4, label_margin=0.1, rank_margin=0.1)
+# seesaw_tpu/configs.py "textual" in both modes (finetune with lr 5e-3)
+TEXTUAL_OPTIONS = {"linear": dict(_TEXTUAL, mode="linear"),
+                   "finetune": dict(_TEXTUAL, mode="finetune", lr=5e-3)}
 # data-sheet peaks of one H100 SXM at 700 W: HBM bytes/s, and operations/s by
 # input type (f32 outside the tensor cores; bf16 and int8 dense tensor rates)
 PEAK_BYTES = 3.35e12
@@ -788,6 +839,230 @@ def vision_throughput(dev, gen, params, attn):
     return records, A.pair_attention.launches
 
 
+# -- phase 8 -----------------------------------------------------------------
+def attention_bwd_bound(B, L, W, causal, dtype):
+    """q, k, v and g read once, dq, dk and dv written once (7 B L W
+    elements); 5 x 2 x 64 operations per query-key pair that the mask keeps,
+    per head (the logits, dp, dq, dk and dv; the softmax left out)."""
+    pairs = L * (L + 1) // 2 if causal else L * L
+    elem = 4 if dtype == "float32" else 2
+    return bound(7 * B * L * W * elem, 5 * 2 * 64 * B * (W // 64) * pairs, dtype)
+
+
+def bf16_ulps(got, want):
+    """(max distance in units of the bf16 ulp of `want`, share of elements
+    that differ)."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0**-126))) - 7)
+    d = (got.float() - w).abs()
+    return float((d / ulp).max()), float((d > 0).float().mean())
+
+
+def check_attention_bwd(dev, gen):
+    """Phase 8a: the backward kernel against its plain backward at each case
+    of BWD_CASES, f32 and bf16; two runs bit-identical; CUDA-event times
+    over 5 input sets (plain, kernel, kernel, plain) and of the SDPA
+    backward on the head-split layout."""
+    import torch
+    import torch.nn.functional as F
+
+    from seesaw_tpu_torch.ops import attention as A
+
+    records = []
+    for name, B, L, W, causal in BWD_CASES:
+        H = W // 64
+        for dtype in ("float32", "bfloat16"):
+            sets = [[torch.randn(B, L, W, device=dev, generator=gen).to(getattr(torch, dtype))
+                     for _ in range(4)] for _ in range(5)]
+            got = A.pair_attention_bwd(*sets[0], causal=causal, heads=H)
+            again = A.pair_attention_bwd(*sets[0], causal=causal, heads=H)
+            want = A.pair_attention_bwd_plain(*sets[0], causal=causal)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"attention bwd {name} {dtype}: two runs differ")
+            err, ulps, share = 0.0, 0.0, 0.0
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dtype])
+                err = max(err, float((a.float() - b.float()).abs().max()))
+                if dtype == "bfloat16":
+                    u, sh = bf16_ulps(a, b)
+                    ulps, share = max(ulps, u), max(share, sh)
+            if share > BWD_MAX_SHARE:
+                raise AssertionError(f"attention bwd {name} bf16: {share!r} of the "
+                                     f"elements differ from the plain backward")
+
+            def kern(q, k, v, g):
+                return A.pair_attention_bwd(q, k, v, g, causal=causal)
+
+            def plain(q, k, v, g):
+                return A.pair_attention_bwd_plain(q, k, v, g, causal=causal)
+
+            p1, k1, k2, p2 = (cuda_ms(f, sets) for f in (plain, kern, kern, plain))
+            split = [[t.view(B, L, H, 64).transpose(1, 2).contiguous() for t in s]
+                     for s in sets]
+            for s in split:
+                for t in s[:3]:
+                    t.requires_grad_()
+            outs = [F.scaled_dot_product_attention(*s[:3], is_causal=causal) for s in split]
+
+            def library(i):
+                return torch.autograd.grad(outs[i], split[i][:3], split[i][3],
+                                           retain_graph=True)
+
+            lib_ms = cuda_ms(library, [(i,) for i in range(len(split))])
+            b_ms, b_by = attention_bwd_bound(B, L, W, causal, dtype)
+            rec = dict(case=name, B=B, L=L, W=W, causal=causal, dtype=dtype,
+                       ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            line = (f"attention bwd {name} B={B} L={L} W={W} causal={causal} {dtype}: "
+                    f"max_abs_err={err!r} kernel_ms={rec['ms']!r} plain_ms={rec['plain_ms']!r} "
+                    f"sdpa_bwd_ms={lib_ms!r} bound_ms={b_ms!r} ({b_by}) bit-identical reruns")
+            if dtype == "bfloat16":
+                rec.update(max_ulps=ulps, share_differing=share)
+                line += f" max_ulps={ulps!r} share_differing={share!r}"
+            log(line)
+            records.append(rec)
+            del sets, split, outs, got, again, want
+            torch.cuda.empty_cache()
+    return records
+
+
+def check_tower_gradients(dev, params):
+    """Phase 8b: one contrastive step of ViT-B/32 at B=8, every parameter
+    trainable, f32: each gradient on the card against the CPU's within
+    GRAD_TOL; 24 K6 launches on the card."""
+    import torch
+
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.models.clip_finetune import clip_contrastive_loss
+    from seesaw_tpu_torch.ops import attention as A
+    from seesaw_tpu_torch.utils import rounds as R
+
+    emb = ClipEmbedding("vit-b32", device="cpu", params=params)
+    px, tok = R.finetune_batch(emb.cfg, 8, device="cpu",
+                               generator=torch.Generator().manual_seed(1))
+    grads, losses = {}, {}
+    for device in (dev, torch.device("cpu")):
+        model = emb.trainable_copy(device)
+        before = A.pair_attention_bwd.launches
+        loss = clip_contrastive_loss(model.encode_image(px.to(device)),
+                                     model.encode_text(tok.to(device)), model.logit_scale)
+        loss.backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            if A.pair_attention_bwd.launches - before != 2 * TOWER_LAYERS:
+                raise AssertionError(f"ViT-B/32 step: {A.pair_attention_bwd.launches - before}"
+                                     f" K6 launches, not {2 * TOWER_LAYERS}")
+        grads[device.type] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        losses[device.type] = float(loss.detach())
+        del model
+    cpu, gpu = grads["cpu"], grads["cuda"]
+    top = max(float(g.abs().max()) for g in cpu.values())
+    worst, at = 0.0, None
+    for n, g in cpu.items():
+        if not bool(torch.isfinite(gpu[n]).all()):
+            raise AssertionError(f"ViT-B/32 gradient {n}: non-finite on the card")
+        rel = float((gpu[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * top)
+        if rel > worst:
+            worst, at = rel, n
+    if worst > GRAD_TOL:
+        raise AssertionError(f"ViT-B/32 gradient {at}: relative difference {worst!r}")
+    log(f"gradients vit-b32 B=8 f32, cuda vs cpu: {len(cpu)} tensors, worst relative "
+        f"difference {worst!r} ({at}; tol {GRAD_TOL}); loss cuda {losses['cuda']!r} cpu "
+        f"{losses['cpu']!r}; {2 * TOWER_LAYERS} K6 launches")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def finetune_path(dev, gen, params, bwd, card):
+    """Phase 8c: CLIPFineTuner steps on ViT-B/32 at FT_BATCH, f32 and bf16,
+    then one step of the default projection-only config. Returns (records,
+    K5 launches, K6 launches) of this path."""
+    import torch
+
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.ops import attention as A
+    from seesaw_tpu_torch.utils import rounds as R
+
+    records = []
+    A.pair_attention.launches = A.pair_attention_bwd.launches = 0  # this path's launches
+    for dtype in ("float32", "bfloat16"):
+        emb = ClipEmbedding("vit-b32", device=dev, params=params, dtype=getattr(torch, dtype))
+        out = R.drive_finetune(emb, FT_CONFIG, device=dev, batch=FT_BATCH, steps=FT_STEPS,
+                               warmup_steps=FT_WARMUP, generator=gen)
+        losses = out["losses"]
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError(f"fine-tune {dtype}: losses {losses}")
+        want = [2 * TOWER_LAYERS] * (FT_WARMUP + FT_STEPS)
+        if out["fwd_launches"] != want or out["bwd_launches"] != want:
+            raise AssertionError(f"fine-tune {dtype}: K5 launches {out['fwd_launches']}, "
+                                 f"K6 {out['bwd_launches']} a step")
+        ms = float(np.mean(out["step_ms"]))
+        k6 = {r["case"]: r["ms"] for r in bwd if r["dtype"] == dtype and r["B"] == FT_BATCH}
+        rec = dict(dtype=dtype, step_ms=ms, p50_step_ms=float(np.median(out["step_ms"])),
+                   pairs_per_s=FT_BATCH / ms * 1e3,
+                   k6_share=TOWER_LAYERS * (k6["vit-b32 vision"] + k6["text"]) / ms,
+                   peak_gb=out["peak_gb"], losses=losses)
+        log(f"[{card}] fine-tune vit-b32 B={FT_BATCH} {dtype}: step_ms={ms!r} "
+            f"p50_step_ms={rec['p50_step_ms']!r} pairs_per_s={rec['pairs_per_s']!r} "
+            f"k6_share={rec['k6_share']!r} peak device memory GB={rec['peak_gb']!r} "
+            f"losses={losses} step_ms_all={out['step_ms']}")
+        records.append(rec)
+        del emb, out
+        torch.cuda.empty_cache()
+    emb = ClipEmbedding("vit-b32", device=dev, params=params)
+    out = R.drive_finetune(emb, {}, device=dev, batch=FT_BATCH, steps=1, generator=gen)
+    if out["bwd_launches"] != [0] or not np.isfinite(out["losses"]).all():
+        raise AssertionError(f"projection-only step: {out['bwd_launches']} K6 launches, "
+                             f"loss {out['losses']}")
+    log(f"[{card}] fine-tune vit-b32 B={FT_BATCH} f32, default text/projection config: "
+        f"step_ms={out['step_ms'][0]!r}, K6 launches 0")
+    del emb, out
+    torch.cuda.empty_cache()
+    return records, A.pair_attention.launches, A.pair_attention_bwd.launches
+
+
+def check_textual_cuda_vs_cpu():
+    """Phase 8d: `textual` sessions in both modes on a root like phase 4's,
+    on the card and on the CPU: same dbidxs every round, scores and model
+    losses within 1e-5."""
+    import torch
+
+    from seesaw_tpu_torch import IndexSpec, SessionParams, make_session
+    from seesaw_tpu_torch.utils import rounds as R
+
+    root = ROOT / "build" / "seesaw_tpu_torch" / "textual_root"
+    artifact = root.with_name(root.name + "_clip")
+    for d in (root, artifact):
+        shutil.rmtree(d, ignore_errors=True)
+    gdm, gt, _ = write_synthetic_root(root)
+    for mode, opts in TEXTUAL_OPTIONS.items():
+        p = SessionParams(index_spec=IndexSpec(d_name="smoke", i_name="multiscale"),
+                          interactive="textual", batch_size=BATCH, shortlist_size=20,
+                          interactive_options=opts)
+        runs, models = {}, {}
+        for device in ("cuda", "cpu"):
+            s = make_session(gdm, p, device=torch.device(device))["session"]
+            runs[device] = R.drive_textual_session(s, gt, 6, text="a dog")
+            models[device] = s.loop.model
+        if models["cuda"].device.type != "cuda" or not models["cuda"].losses:
+            raise AssertionError(f"textual {mode}: the CUDA session's model did not train "
+                                 f"on the card")
+        for r, ((gd, gs), (cd, cs)) in enumerate(zip(runs["cuda"], runs["cpu"])):
+            if gd != cd:
+                raise AssertionError(f"textual {mode} round {r}: cuda {gd} != cpu {cd}")
+            np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(models["cuda"].losses, models["cpu"].losses,
+                                   rtol=1e-5, atol=1e-5)
+        loss_err = float(np.abs(np.subtract(models["cuda"].losses, models["cpu"].losses)).max())
+        log(f"textual {mode} session: cuda == cpu dbidxs over {len(runs['cuda'])} rounds; "
+            f"model losses max diff {loss_err!r} over {len(models['cuda'].losses)} steps")
+    for d in (root, artifact):
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -842,13 +1117,19 @@ def main() -> int:
         f"ms={text_times}")
     vision, vision_launches = vision_throughput(dev, gen, clip_params, attn)
     torch.cuda.synchronize()
+    bwd = check_attention_bwd(dev, gen)
+    grad_err = check_tower_gradients(dev, clip_params)
+    finetune, ft_fwd_launches, ft_bwd_launches = finetune_path(dev, gen, clip_params, bwd, card)
+    check_textual_cuda_vs_cpu()
+    torch.cuda.synchronize()
     bad = [m for m in sys.modules
-           if m in ("jax", "flax") or m == "seesaw_tpu" or m.startswith("seesaw_tpu.")]
+           if m in ("jax", "flax", "optax") or m == "seesaw_tpu" or m.startswith("seesaw_tpu.")]
     if bad:
         raise AssertionError(f"the port imported {bad}")
 
     bf16 = next(r for r in scan if r["dtype"] == "bfloat16")
     text_query = next(r for r in attn if r["case"] == "text query")
+    vit_bwd = next(r for r in bwd if r["case"] == "vit-b32 vision" and r["dtype"] == "float32")
     log(json.dumps({"kernels": [{
         "name": "fused_frame_max", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/fused_frame_max.cu",
@@ -876,13 +1157,25 @@ def main() -> int:
         # phase 5's text queries (12 per session); the vision forwards of 7d
         "launches": attn_launches,
         "launches_by_path": {"text_query_sessions": attn_launches,
-                             "vision_encode": vision_launches},
+                             "vision_encode": vision_launches,
+                             "finetune": ft_fwd_launches},
         "max_abs_err": max(r["max_abs_err"] for r in attn),
         # at the main path's shape (the text query: B=1, L=77, W=512, causal)
         **{k: text_query[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
         "text_encode_p50_ms": text_p50,
         "cases": attn, "vision_vit_b32": vision,
+    }, {
+        "name": "pair_attention_bwd", "route": "cuda",
+        "source": "seesaw_tpu_torch/csrc/pair_attention.cu",
+        "replaces": "seesaw_tpu/ops/pallas_attention.py:115",
+        # phase 8c's fine-tuning steps: 24 a step (12 vision, 12 text layers)
+        "launches": ft_bwd_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in bwd),
+        # at the main path's shape (fine-tuning's ViT-B/32 vision layer, f32)
+        **{k: vit_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "cases": bwd, "finetune_vit_b32": finetune,
+        "tower_gradient_rel_err": grad_err,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

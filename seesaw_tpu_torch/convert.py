@@ -13,7 +13,8 @@
 - `ranker_state_from_arrays`: a JAX label-propagation ranker's device state
   (labels, is_labeled, prior) as tensors.
 - `clip_params_from_arrays`: a JAX `ClipModel`'s params (a nested dict of
-  numpy arrays) as the port's CLIP state dict.
+  numpy arrays) as the port's CLIP state dict; `clip_arrays_from_state_dict`
+  is its inverse.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from .indices.meta import VectorMeta
 from .knn_graph import SymmetricWeights
 from .indices.multiscale import MultiscaleIndex
 from .learners import LogisticRegression
-from .models.clip import ClipConfig, _flatten, _state_dict_from_flat
+from .models.clip import ClipConfig, _flatten, _npz_arrays, _state_dict_from_flat
 
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -101,3 +102,18 @@ def clip_params_from_arrays(tree, cfg: ClipConfig) -> dict:
     embedding's (out, kh * kw * in) weight, layer-norm scales weights.
     Raises if a name or shape does not match `cfg`."""
     return _state_dict_from_flat(_flatten(tree), cfg)
+
+
+def clip_arrays_from_state_dict(sd) -> dict:
+    """The port's CLIP state dict (on any device) -> the JAX `ClipModel`'s
+    params as a nested dict of f32 numpy arrays, flax's layout:
+    `{"vision": {"layer_0": {"self_attn": {"q_proj": {"kernel": ...}}}},
+    ..., "logit_scale": ...}`. The inverse of `clip_params_from_arrays`."""
+    tree: dict = {}
+    for path, a in _npz_arrays(sd).items():
+        *mods, leaf = path.split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = a
+    return tree

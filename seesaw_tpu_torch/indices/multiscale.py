@@ -194,6 +194,7 @@ class MultiscaleIndex(AccessMethod):
         self._excl_entries = OrderedDict()  # id(BitMap) -> _ExclEntry
         self._excl_base = None  # device mask for exclude=None
         self.last_fit = None  # n_iter / host_syncs of the last LogReg2 fit
+        self._vectors_dev = None  # device copy of the host mirror, made on first use
 
     @staticmethod
     def from_device_arrays(
@@ -277,6 +278,33 @@ class MultiscaleIndex(AccessMethod):
         if self.vectors is not None:
             return self.vectors[rows]
         return self._device_rows_f32(self._rows_tensor(rows)).cpu().numpy()
+
+    def vectors_f32(self) -> torch.Tensor:
+        """(n_vectors, D) f32 on the device in exact row order: a copy of
+        the host mirror (made once), or the device matrix (dequantized for
+        int8) when there is no mirror, which needs uniform tiling."""
+        if self.vectors is not None:
+            if self._vectors_dev is None:
+                self._vectors_dev = torch.from_numpy(self.vectors).to(self.device)
+            return self._vectors_dev
+        if self.meta.n_vectors != int(self._V.shape[0]):
+            raise ValueError("device vectors_f32() needs uniform tiling")
+        return self._device_rows_f32(torch.arange(self.meta.n_vectors, device=self.device))
+
+    def get_data(self, dbidx: int) -> dict:
+        """One image's tiles: boxes, zoom levels, f32 vectors (host mirror,
+        or gathered from the device) and exact-layout rows."""
+        f = int(np.searchsorted(self.meta.frame_dbidx, dbidx))
+        if f >= self.meta.n_frames or self.meta.frame_dbidx[f] != dbidx:
+            raise KeyError(f"dbidx {dbidx} not in index")
+        lo, hi = int(self.meta.frame_starts[f]), int(self.meta.frame_starts[f + 1])
+        rows = np.arange(lo, hi)
+        return {
+            "boxes": self.meta.boxes[lo:hi],
+            "zoom_level": self.meta.zoom_level[lo:hi],
+            "vectors": self.vectors_for_rows(rows),
+            "rows": rows,
+        }
 
     # -- basic ops -----------------------------------------------------------
     def string2vec(self, string: str) -> np.ndarray:

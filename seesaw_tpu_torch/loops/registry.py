@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from .graph_based import KnnProp2
 from .point_based import LogReg2, Plain, RandomResults, RocchioUpdate
+from .textual import TextualFeedback
 
 REGISTRY = {
     "plain": Plain,
@@ -11,6 +12,7 @@ REGISTRY = {
     "rocchio_update": RocchioUpdate,
     "random": RandomResults,
     "knn_prop2": KnnProp2,
+    "textual": TextualFeedback,
 }
 
 

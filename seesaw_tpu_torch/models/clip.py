@@ -18,10 +18,13 @@ path runs, in both packages.
 
 Parameters are a torch state dict whose names mirror the flax tree
 (`vision.layer_0.self_attn.q_proj.weight` for
-`vision/layer_0/self_attn/q_proj/kernel`); `load_checkpoint`,
-`save_params_npz` and `convert.clip_params_from_arrays` convert between the
-two, so the JAX package's `params.npz` loads here and this package's saves
-load there. `init_params`
+`vision/layer_0/self_attn/q_proj/kernel`, `flax_path`); `load_checkpoint`,
+`save_params_npz`, `convert.clip_params_from_arrays` and
+`convert.clip_arrays_from_state_dict` convert between the two, so the JAX
+package's `params.npz` loads here and this package's saves load there.
+`ClipEmbedding.trainable_copy` gives the fine-tuning code
+(`models.clip_finetune`) a model of its own, and the towers train through
+the attention kernels' autograd Function. `init_params`
 draws its own random weights from a `torch.Generator`: they are not flax's
 numbers for the same seed.
 """
@@ -324,21 +327,36 @@ def _state_dict_from_flat(flat, cfg: ClipConfig) -> dict:
     return sd
 
 
+def flax_path(name: str) -> str:
+    """State-dict name -> the JAX package's flax path, '/'-joined (the key of
+    its params.npz, and the string its optimizer prefixes match):
+    `text.projection.weight` -> `text/projection/kernel`, a layer norm's
+    weight -> `.../scale`, `logit_scale` as it is."""
+    *mods, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "scale" if mods[-1] in _LAYER_NORMS else "kernel"
+    return "/".join([*mods, leaf])
+
+
+def cpu_state_dict(model: nn.Module) -> dict:
+    """A model's parameters as an f32 CPU state dict of copies."""
+    return {k: v.detach().to("cpu", torch.float32, copy=True)
+            for k, v in model.state_dict().items()}
+
+
 def _npz_arrays(sd: Mapping) -> dict:
     """State dict -> flat {"vision/layer_0/.../kernel": array} in the flax
     layout (the keys of the JAX package's params.npz)."""
     flat = {}
     for name, t in sd.items():
         a = t.detach().to(torch.float32).cpu().numpy()
-        *mods, leaf = name.split(".")
-        if leaf == "weight" and mods[-1] in _LAYER_NORMS:
-            leaf = "scale"
-        elif leaf == "weight" and mods[-1] == "patch_embedding":
+        path = flax_path(name)
+        if path.endswith("patch_embedding/kernel"):
             p = math.isqrt(a.shape[1] // 3)
-            a, leaf = a.T.reshape(p, p, 3, a.shape[0]), "kernel"
-        elif leaf == "weight":
-            a, leaf = a.T, "kernel"
-        flat["/".join([*mods, leaf])] = np.array(a, order="C")
+            a = a.T.reshape(p, p, 3, a.shape[0])
+        elif path.endswith("/kernel"):
+            a = a.T
+        flat[path] = np.array(a, order="C")
     return flat
 
 
@@ -512,6 +530,21 @@ class ClipEmbedding:
     @property
     def dim(self) -> int:
         return self.cfg.embed_dim
+
+    def state_dict(self) -> dict:
+        """The model's parameters as an f32 CPU state dict of copies, which
+        `ClipEmbedding(params=..., cfg=..., dtype=None)` takes back."""
+        return cpu_state_dict(self.model)
+
+    def trainable_copy(self, device) -> ClipModel:
+        """A copy of the model on `device` whose parameters require grad.
+        This embedding's own model stays frozen and unchanged: the registry
+        shares it with every session on its device."""
+        with torch.device("meta"):
+            model = ClipModel(self.cfg)
+        model.load_state_dict({k: v.detach().to(device, copy=True)
+                               for k, v in self.model.state_dict().items()}, assign=True)
+        return model.requires_grad_(True)
 
     def from_string(self, *, string: str = None, str_list=None) -> np.ndarray:
         """Unit (D,) for `string` (cached), or (n, D) for `str_list` (not

@@ -13,6 +13,16 @@ The KnnProp2 graph round as `bench.py` bench_graph_10M drives it
 options, and rank -> simulated labels -> `ranker.update` per round, each
 feedback round fused into the next ranking.
 
+A textual session (`drive_textual_session`) whose simulated user attaches
+descriptions to its boxes, as the JAX package's bench user does with
+`provide_textual_feedback` (`seesaw_tpu/bench/harness.py:128-150`): the
+target's boxes accepted and described, a confusion class rejected and
+described.
+
+CLIP fine-tuning (`drive_finetune`): `CLIPFineTuner` steps on a batch of
+seeded pixels and token rows made on the device, with host-clock times and
+the attention kernels' launches per step.
+
 `chip_smoke.py` and `utils/profile_round.py` drive these on the card; the
 tests drive them on the CPU at a small size.
 """
@@ -29,7 +39,8 @@ from ..indices.meta import VectorMeta
 from ..indices.multiscale import MultiscaleIndex
 from ..knn_graph import SymmetricWeights
 from ..loops.knn_methods import LabelPropagationRanker2
-from ..ops import fused_scoring, spmv
+from ..models.clip_finetune import CLIPFineTuner
+from ..ops import attention, fused_scoring, spmv
 from ..ops.propagation import DeferredPropagation
 from ..runtime.bitmap import BitMap
 from ..session import Session
@@ -227,4 +238,83 @@ def drive_knnprop_rounds(idx: MultiscaleIndex, ranker: LabelPropagationRanker2,
             out["launches"].append(launched)
     if len(returned) != rounds * batch_size:
         raise AssertionError("the rounds repeated a dbidx")
+    return out
+
+
+TEXTUAL_CONFUSION = "a cat"  # the simulated user's description of a rejected box
+
+
+def drive_textual_session(session: Session, gt: dict, rounds: int, *, text: str,
+                          box_type=Box):
+    """Set the text query `text`, then `rounds` clicks. The simulated user
+    gives each image with a ground-truth box (`gt`: dbidx -> (x1, y1, x2,
+    y2)) that box, accepted and described `text`, and every other image a
+    rejected box over its top-left quadrant described TEXTUAL_CONFUSION.
+    `box_type` is the Box class of the session's package. Returns each
+    round's dbidxs and activation scores."""
+    session.set_text(text)
+    out = []
+    for _ in range(rounds):
+        dbidxs = [int(i) for i in session.next()]
+        out.append((dbidxs, np.array([a["score"] for a in session.acc_activations[-1]],
+                                     np.float32)))
+        state = session.get_state()
+        for im in state.gdata[-1]:
+            b = gt.get(im.dbidx)
+            if b is not None:
+                x1, y1, x2, y2 = (float(c) for c in b)
+                im.boxes = [box_type(x1=x1, y1=y1, x2=x2, y2=y2, description=text,
+                                     marked_accepted=True)]
+            else:
+                im.boxes = [box_type(x1=0.0, y1=0.0, x2=_IMG / 2, y2=_IMG / 2,
+                                     description=TEXTUAL_CONFUSION,
+                                     marked_accepted=False)]
+        session.update_state(state)
+        session.refine()
+    return out
+
+
+def finetune_batch(cfg, batch: int, *, device, generator: torch.Generator):
+    """(pixels (B, S, S, 3) f32, tokens (B, context) int64) made on `device`:
+    normal pixels; token ids in [1, vocab - 1) with the EOT id (vocab - 1,
+    the largest) at a random position >= 1 of each row and zeros after it."""
+    dev = torch.device(device)
+    px = torch.randn(batch, cfg.image_size, cfg.image_size, 3, device=dev,
+                     generator=generator)
+    L = cfg.context_length
+    tok = torch.randint(1, cfg.vocab_size - 1, (batch, L), device=dev, generator=generator)
+    eot = torch.randint(1, L, (batch, 1), device=dev, generator=generator)
+    pos = torch.arange(L, device=dev)[None, :]
+    tok = torch.where(pos < eot, tok, 0)
+    tok = torch.where(pos == eot, cfg.vocab_size - 1, tok)
+    return px, tok
+
+
+def drive_finetune(embedding, config: dict, *, device, batch: int, steps: int,
+                   warmup_steps: int = 0, generator: torch.Generator) -> dict:
+    """`warmup_steps + steps` `CLIPFineTuner.train_step`s on one batch of
+    `finetune_batch` pairs on `device`. Returns the loss of every step, the
+    host-clock ms of the timed steps (each ending in a device
+    sync), the attention kernels' launches per step (forward and backward),
+    and the peak device memory (GB) of the timed steps on a CUDA device."""
+    dev = torch.device(device)
+    tuner = CLIPFineTuner(embedding, config, device=dev)
+    px, tok = finetune_batch(embedding.cfg, batch, device=dev, generator=generator)
+    out = dict(losses=[], step_ms=[], fwd_launches=[], bwd_launches=[], peak_gb=None)
+    for step in range(warmup_steps + steps):
+        if step == warmup_steps and dev.type == "cuda":
+            sync(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        fwd, bwd = attention.pair_attention.launches, attention.pair_attention_bwd.launches
+        t0 = time.perf_counter()
+        loss = tuner.train_step(px, tok)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        out["losses"].append(float(loss))
+        out["fwd_launches"].append(attention.pair_attention.launches - fwd)
+        out["bwd_launches"].append(attention.pair_attention_bwd.launches - bwd)
+        if step >= warmup_steps:
+            out["step_ms"].append(ms)
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out

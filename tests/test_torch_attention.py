@@ -141,8 +141,19 @@ def test_cuda_kernel_matches_plain(cuda_device, B, L, W, causal, dtype):
 
 @pytest.mark.cuda
 def test_cuda_forward_only(cuda_device):
+    """The forward kernel alone under no_grad; with a grad, the backward is
+    the K6 kernel (one launch) and matches the plain backward."""
     q = torch.randn(1, 8, 128, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="K6"):
-        tatt.pair_attention(q, q.detach(), q.detach())
+    k, v = torch.randn(2, 1, 8, 128, device=cuda_device)
     with torch.no_grad():
+        before = tatt.pair_attention_bwd.launches
         assert tatt.pair_attention(q, q, q).shape == q.shape
+        assert tatt.pair_attention_bwd.launches == before
+    out = tatt.pair_attention(q, k, v)
+    g = torch.randn_like(out)
+    before = tatt.pair_attention_bwd.launches
+    (dq,) = torch.autograd.grad(out, q, g)
+    torch.cuda.synchronize()
+    assert tatt.pair_attention_bwd.launches == before + 1
+    torch.testing.assert_close(dq, tatt.pair_attention_bwd_plain(q.detach(), k, v, g)[0],
+                               rtol=1e-5, atol=1e-5)

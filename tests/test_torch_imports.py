@@ -1,7 +1,8 @@
 """The port stands alone: no module of `seesaw_tpu_torch`, and not
 `chip_smoke.py`, imports the JAX package (`seesaw_tpu`, any of its
-modules) or jax. Checked statically on every source file, and in a fresh
-process that loads the CLIP embedding; the session test
+modules), jax, flax or optax. Checked statically on every source file, and
+in fresh processes that load the CLIP embedding, fine-tune it and train the
+textual feedback model; the session test
 (`test_torch_session.py::test_port_session_imports_no_jax`) checks
 `sys.modules` after real sessions."""
 import ast
@@ -14,7 +15,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "seesaw_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("seesaw_tpu", "jax", "flax")
+FORBIDDEN = ("seesaw_tpu", "jax", "flax", "optax")
 
 
 def _imported_modules(path: Path):
@@ -47,7 +48,46 @@ def test_clip_embedding_imports_no_jax():
         assert emb.from_string(string="a dog").shape == (emb.dim,)
         assert load_embedding("clip-test", "cpu").dim == emb.dim
         bad = [m for m in sys.modules
-               if m in ("jax", "flax") or m == "seesaw_tpu" or m.startswith("seesaw_tpu.")]
+               if m in ("jax", "flax", "optax") or m == "seesaw_tpu"
+               or m.startswith("seesaw_tpu.")]
+        assert not bad, bad
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_training_modules_import_no_jax():
+    """A fine-tuning step, an OnlineModel update in both modes and the
+    textual loop's module leave jax, flax, optax and the JAX package out of
+    `sys.modules`."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from seesaw_tpu_torch.loops.registry import REGISTRY
+        from seesaw_tpu_torch.models.clip import ClipEmbedding
+        from seesaw_tpu_torch.models.clip_finetune import CLIPFineTuner
+        from seesaw_tpu_torch.models.online_model import OnlineModel
+        emb = ClipEmbedding("test", device="cpu")
+        rng = np.random.default_rng(0)
+        px = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+        toks = rng.integers(1, 127, size=(4, 16)).astype(np.int32)
+        ft = CLIPFineTuner(emb, {"opt_config": {"": {"lr": 1e-3}}}, device="cpu")
+        ft.fit(px, toks, batch_size=4)
+        vecs = rng.normal(size=(6, emb.dim)).astype(np.float32)
+        acc = np.array([True, False] * 3)
+        ann = np.array(["a dog", "a cat"] * 3, dtype=object)
+        for mode in ("linear", "finetune"):
+            m = OnlineModel(emb, {"mode": mode, "rounds": 2}, device="cpu")
+            m.update(vecs, acc, ann, target_string="a dog")
+            assert m.score_vecs(vecs).shape == (6,)
+        assert "textual" in REGISTRY
+        bad = [m for m in sys.modules
+               if m in ("jax", "flax", "optax") or m == "seesaw_tpu"
+               or m.startswith("seesaw_tpu.")]
         assert not bad, bad
         print("ok")
     """)
