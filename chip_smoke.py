@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. device check: a CUDA device must be present; TF32 is switched off.
 2. build the kernels from `seesaw_tpu_torch/csrc` with nvcc, one process
    per source, started together: the fused frame-max scan, the kNN
-   SpMV / Jacobi step and the pair attention of the CLIP towers.
+   SpMV / Jacobi step and the pair attention of the CLIP towers (f32 on the
+   CUDA cores, bf16 on the tensor cores).
 3. each kernel vs its plain PyTorch version on the card, with CUDA-event
    times (kernel and plain version alternated) and the time of the nearest
    single PyTorch call:
@@ -45,10 +46,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    after round 0, and each round reads the host once per segment.
 7. the CLIP towers (`seesaw_tpu_torch.models.clip`), all at full width:
    a. the pair-attention kernel against its plain version at the towers'
-      shapes (ViT-B/32 vision B=1024 f32 and bf16; text B=1 and B=64 causal;
-      ViT-B/16 vision L=197; ViT-L/14 vision L=257 f32 and bf16; a small
-      ragged case each way), CUDA-event times alternated, library call
-      `scaled_dot_product_attention` on the head-split layout;
+      shapes (ViT-B/32 vision B=1024 f32 and bf16 and fine-tuning's B=256
+      in bf16; text B=1 and B=64 causal, and B=256 in bf16; ViT-B/16 vision
+      L=197 f32 and bf16; ViT-L/14 vision L=257 f32 and bf16; small ragged
+      cases), two runs bit-identical, CUDA-event times alternated, library
+      call `scaled_dot_product_attention` on the head-split layout; device
+      times (the kernels' durations under torch.profiler) of the kernel and
+      of SDPA beside the events times;
    b. ViT-B/32 towers on the card against the same on the CPU (the
       seeded weights of phase 5, a few strings and 224 x 224 images, f32),
       12 attention launches per tower call;
@@ -63,14 +67,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       identical bits, CUDA-event times alternated with the plain version,
       library call `torch.autograd.grad` through
       `scaled_dot_product_attention` on the head-split layout (backward
-      only: the graph is built outside the timed calls);
+      only: the graph is built outside the timed calls), device times as
+      in 7a; then p bit-identical in the bf16 forward and backward (v and g
+      one-hot, L = 50 and L = 13 causal);
    b. one contrastive step of ViT-B/32 at B=8 with every parameter
       trainable, f32: every gradient on the card against the CPU's, 24 K6
       launches (12 vision and 12 text layers);
    c. `CLIPFineTuner` on ViT-B/32 at B=256, lr 1e-5, weight decay 0.1,
       warmup 2, f32 and bf16: 2 warm-up then 8 timed steps, ms a step,
       pairs/s, K6's share of a step, peak memory; 24 K5 and 24 K6 launches
-      a step, finite losses, the last below the first; then one step with
+      a step, all of the step's type (f32: CUDA cores, bf16: tensor cores),
+      finite losses, the last below the first; then one step with
       the default `text/projection` config, which must launch no K6;
    d. `textual` sessions (linear and finetune modes) on a root like phase
       4's, on the card against the CPU: same dbidxs every round.
@@ -104,20 +111,28 @@ TOL = {  # kernel vs plain version, same bytes in
 SPMV_TOL = dict(rtol=2e-5, atol=2e-6)
 GRAPH_K = 32  # bench.py bench_graph_10M
 # pair attention vs plain version, same inputs: f32 sums of 64-term logits
-# and L-term P.V in another order. bf16: under one output ulp (2^-8 to 2^-7
-# relative), so each output must round to the plain version's bf16 value
-# (0.0 measured); a kernel that skipped rounding p to bf16 before P.V moves
-# ~40% of the outputs by an ulp or more and fails
-ATTN_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-8, atol=1e-5)}
+# and L-term P.V in another order (the f32 kernel's fmaf chains). bf16: the
+# tensor cores sum the logits in another order than the plain version's f32
+# GEMM, so a logit moves by an f32 bit and flips one p's bf16 rounding, or an
+# output lands on the other side of its rounding boundary: one output ulp,
+# so rtol 2^-7 (an ulp at the bottom of a binade) and atol 1e-3 (near 0),
+# K6's bar; and at most ATTN_MAX_SHARE of the outputs may differ at all. A
+# kernel that skipped rounding p to bf16 before P.V moves ~40% and fails
+ATTN_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-7, atol=1e-3)}
+ATTN_MAX_SHARE = 1e-3
 ATTN_CASES = (  # (name, B, L, W, causal, dtype): the towers' shapes
     ("text query", 1, 77, 512, True, "float32"),
     ("text batch", 64, 77, 512, True, "float32"),
+    ("text", 256, 77, 512, True, "bfloat16"),
     ("vit-b32 vision", 1024, 50, 768, False, "float32"),
     ("vit-b32 vision", 1024, 50, 768, False, "bfloat16"),
+    ("vit-b32 vision", 256, 50, 768, False, "bfloat16"),
     ("vit-b16 vision", 256, 197, 768, False, "float32"),
+    ("vit-b16 vision", 256, 197, 768, False, "bfloat16"),
     ("vit-l14 vision", 64, 257, 1024, False, "float32"),
     ("vit-l14 vision", 64, 257, 1024, False, "bfloat16"),
     ("small ragged", 3, 13, 128, True, "float32"),
+    ("small ragged", 3, 13, 128, True, "bfloat16"),
     ("small ragged", 5, 33, 256, False, "bfloat16"),
 )
 # CLIP ViT-B/32 towers on the card vs on the CPU, f32 with TF32 off, unit
@@ -126,13 +141,15 @@ TOWER_TOL = dict(rtol=1e-4, atol=1e-4)
 TOWER_LAYERS = 12  # ViT-B/32: 12 text and 12 vision layers, one launch each
 VISION_BATCH = 1024
 # pair-attention backward vs its plain backward, same inputs: f32 as the
-# forward. bf16: an element moves by one output ulp where an f32 value (a
-# ds before its rounding, or an output) lands on a rounding boundary in one
-# version and not the other, so rtol 2^-7 (one ulp at the bottom of a
-# binade) and atol 1e-3 for outputs near 0, where one ds a rounding step off
-# (2^-8 of a ds, times a key) is many ulps of the cancelled sum; and at most
-# BWD_MAX_SHARE of the elements may differ at all (measured <= 5e-5): a
-# kernel that skipped rounding ds to bf16 before dq and dk moves about half
+# forward. bf16: the tensor cores sum logits and dp in another order than
+# the plain version's f32 GEMMs, and an element moves by one output ulp
+# where an f32 value (a p or ds before its rounding, or an output) lands on
+# a rounding boundary in one version and not the other, so rtol 2^-7 (one
+# ulp at the bottom of a binade) and atol 1e-3 for outputs near 0, where one
+# ds a rounding step off (2^-8 of a ds, times a key) is many ulps of the
+# cancelled sum; and at most BWD_MAX_SHARE of the elements may differ at
+# all: a kernel that skipped rounding ds to bf16 before dq and dk moves about
+# half
 BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-7, atol=1e-3)}
 BWD_MAX_SHARE = 1e-3
 BWD_CASES = (  # (name, B, L, W, causal): fine-tuning's batch at the towers' shapes
@@ -185,6 +202,38 @@ def cuda_ms(fn, args_list) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / len(args_list)
+
+
+def device_ms(fn, args_list):
+    """Mean device ms per call over the argument list: the summed durations
+    of the device's kernels and copies under torch.profiler, so the host's
+    launches and autograd engine are left out. None where the profiler saw
+    no device activity (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args_list[0])  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for args in args_list:
+            fn(*args)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / len(args_list) if us > 0 else None
+
+
+def bf16_ulps(got, want):
+    """(max distance in units of the bf16 ulp of the larger of the two
+    values, share of elements that differ)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    d = (g - w).abs()
+    return float((d / ulp).max()), float((d > 0).float().mean())
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -612,7 +661,8 @@ def main_path(dev, gen, card, clip):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # count only the main path's launches
-    fs.fused_frame_max.launches = attention.pair_attention.launches = 0
+    fs.fused_frame_max.launches = 0
+    attention.reset_launch_counts()
     for name, params, rounds, dtype in (
         ("rocchio_update bf16", rocchio, 10, "bfloat16"),
         ("log_reg2 bf16", logreg, 10, "bfloat16"),
@@ -702,9 +752,10 @@ def attention_bound(B, L, W, causal, dtype):
 
 def check_attention(dev, gen):
     """Phase 7a: the pair-attention kernel against its plain version at each
-    case of ATTN_CASES; CUDA-event times over 5 input sets (plain, kernel,
-    kernel, plain) and of scaled_dot_product_attention on the head-split
-    (B, H, L, 64) layout, split before the timed calls."""
+    case of ATTN_CASES; two runs bit-identical; CUDA-event times over 5
+    input sets (plain, kernel, kernel, plain) and of
+    scaled_dot_product_attention on the head-split (B, H, L, 64) layout,
+    split before the timed calls; device times of the kernel and of SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -716,10 +767,17 @@ def check_attention(dev, gen):
                  for _ in range(3)] for _ in range(5)]
         q, k, v = sets[0]
         got = A.pair_attention(q, k, v, causal=causal, heads=W // 64)
+        again = A.pair_attention(q, k, v, causal=causal, heads=W // 64)
         want = A.pair_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"attention {name} {dtype}: two runs differ")
         err = float((got.float() - want.float()).abs().max())
         torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+        ulps, share = bf16_ulps(got, want) if dtype == "bfloat16" else (0.0, 0.0)
+        if share > ATTN_MAX_SHARE:
+            raise AssertionError(f"attention {name} bf16: {share!r} of the outputs differ "
+                                 f"from the plain version")
 
         def kern(q, k, v):
             return A.pair_attention(q, k, v, causal=causal)
@@ -737,16 +795,23 @@ def check_attention(dev, gen):
         lib_out = library(*split[0]).transpose(1, 2).reshape(B, L, W)
         lib_err = float((lib_out.float() - want.float()).abs().max())
         lib_ms = cuda_ms(library, split)
+        dev_ms, lib_dev_ms = device_ms(kern, sets), device_ms(library, split)
         b_ms, b_by = attention_bound(B, L, W, causal, dtype)
         rec = dict(case=name, B=B, L=L, W=W, causal=causal, dtype=dtype,
                    ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                   device_ms=dev_ms, library_device_ms=lib_dev_ms,
                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        log(f"attention {name} B={B} L={L} W={W} causal={causal} {dtype}: "
-            f"max_abs_err={err!r} kernel_ms={rec['ms']!r} plain_ms={rec['plain_ms']!r} "
-            f"sdpa_ms={lib_ms!r} (sdpa vs plain max_abs_err={lib_err!r}) "
-            f"bound_ms={b_ms!r} ({b_by})")
+        line = (f"attention {name} B={B} L={L} W={W} causal={causal} {dtype}: "
+                f"max_abs_err={err!r} kernel_ms={rec['ms']!r} kernel_device_ms={dev_ms!r} "
+                f"plain_ms={rec['plain_ms']!r} sdpa_ms={lib_ms!r} "
+                f"sdpa_device_ms={lib_dev_ms!r} (sdpa vs plain max_abs_err={lib_err!r}) "
+                f"bound_ms={b_ms!r} ({b_by}) bit-identical reruns")
+        if dtype == "bfloat16":
+            rec.update(max_ulps=ulps, share_differing=share)
+            line += f" max_ulps={ulps!r} share_differing={share!r}"
+        log(line)
         records.append(rec)
-        del sets, split, got, want, lib_out
+        del sets, split, got, again, want, lib_out
         torch.cuda.empty_cache()
     return records
 
@@ -811,22 +876,24 @@ def vision_throughput(dev, gen, params, attn):
 
     px = torch.randn(VISION_BATCH, 224, 224, 3, device=dev, generator=gen)
     records = []
-    A.pair_attention.launches = 0  # count only this path's launches
+    A.reset_launch_counts()  # count only this path's launches
     for dtype in ("float32", "bfloat16"):
         emb = ClipEmbedding("vit-b32", device=dev, params=params, dtype=getattr(torch, dtype))
         emb.encode_image_batch(px[:8])  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = A.pair_attention.launches
+        before = A.pair_attention.launches_by_dtype[dtype]
         fwd_ms = cuda_ms(emb.encode_image_batch, [(px,)] * 3)
         out = emb.encode_image_batch(px)
         torch.cuda.synchronize()
-        launched = A.pair_attention.launches - before
+        launched = A.pair_attention.launches_by_dtype[dtype] - before
         if launched != 5 * TOWER_LAYERS:  # warm-up + 3 timed + 1
-            raise AssertionError(f"vision {dtype}: {launched} attention launches in 5 forwards")
+            raise AssertionError(f"vision {dtype}: {launched} {dtype} attention launches "
+                                 f"in 5 forwards")
         if out.shape != (VISION_BATCH, 512) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"vision {dtype}: shape {tuple(out.shape)} or non-finite values")
-        k5 = next(r for r in attn if r["case"] == "vit-b32 vision" and r["dtype"] == dtype)
+        k5 = next(r for r in attn if r["case"] == "vit-b32 vision" and r["dtype"] == dtype
+                  and r["B"] == VISION_BATCH)
         rec = dict(dtype=dtype, forward_ms=fwd_ms, images_per_s=VISION_BATCH / fwd_ms * 1e3,
                    attention_share=TOWER_LAYERS * k5["ms"] / fwd_ms,
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -836,7 +903,7 @@ def vision_throughput(dev, gen, params, attn):
         records.append(rec)
         del emb, out
         torch.cuda.empty_cache()
-    return records, A.pair_attention.launches
+    return records, dict(A.pair_attention.launches_by_dtype)
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -847,17 +914,6 @@ def attention_bwd_bound(B, L, W, causal, dtype):
     pairs = L * (L + 1) // 2 if causal else L * L
     elem = 4 if dtype == "float32" else 2
     return bound(7 * B * L * W * elem, 5 * 2 * 64 * B * (W // 64) * pairs, dtype)
-
-
-def bf16_ulps(got, want):
-    """(max distance in units of the bf16 ulp of `want`, share of elements
-    that differ)."""
-    import torch
-
-    w = want.float()
-    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0**-126))) - 7)
-    d = (got.float() - w).abs()
-    return float((d / ulp).max()), float((d > 0).float().mean())
 
 
 def check_attention_bwd(dev, gen):
@@ -911,14 +967,19 @@ def check_attention_bwd(dev, gen):
                 return torch.autograd.grad(outs[i], split[i][:3], split[i][3],
                                            retain_graph=True)
 
-            lib_ms = cuda_ms(library, [(i,) for i in range(len(split))])
+            calls = [(i,) for i in range(len(split))]
+            lib_ms = cuda_ms(library, calls)
+            dev_ms, lib_dev_ms = device_ms(kern, sets), device_ms(library, calls)
             b_ms, b_by = attention_bwd_bound(B, L, W, causal, dtype)
             rec = dict(case=name, B=B, L=L, W=W, causal=causal, dtype=dtype,
                        ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                       device_ms=dev_ms, library_device_ms=lib_dev_ms,
                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
             line = (f"attention bwd {name} B={B} L={L} W={W} causal={causal} {dtype}: "
-                    f"max_abs_err={err!r} kernel_ms={rec['ms']!r} plain_ms={rec['plain_ms']!r} "
-                    f"sdpa_bwd_ms={lib_ms!r} bound_ms={b_ms!r} ({b_by}) bit-identical reruns")
+                    f"max_abs_err={err!r} kernel_ms={rec['ms']!r} kernel_device_ms={dev_ms!r} "
+                    f"plain_ms={rec['plain_ms']!r} sdpa_bwd_ms={lib_ms!r} "
+                    f"sdpa_bwd_device_ms={lib_dev_ms!r} bound_ms={b_ms!r} ({b_by}) "
+                    f"bit-identical reruns")
             if dtype == "bfloat16":
                 rec.update(max_ulps=ulps, share_differing=share)
                 line += f" max_ulps={ulps!r} share_differing={share!r}"
@@ -927,6 +988,42 @@ def check_attention_bwd(dev, gen):
             del sets, split, outs, got, again, want
             torch.cuda.empty_cache()
     return records
+
+
+def check_p_identity(dev, gen, heads=2):
+    """Phase 8a: p bit-identical in the bf16 forward and backward kernels.
+    Image b takes query row b of one q and k (B = L <= 64); v_j = e_j in
+    every head, so the forward's output row b is round(p_b) exactly; g is
+    e_0 on row b of each head, so the backward's dv[b, j, 64h] is
+    round(p_bj) exactly."""
+    import torch
+
+    from seesaw_tpu_torch.ops import attention as A
+
+    W = 64 * heads
+    for L, causal in ((50, False), (13, True)):
+        B = L
+        q, k = (torch.randn(1, L, W, device=dev, generator=gen).to(torch.bfloat16)
+                .expand(B, L, W).contiguous() for _ in range(2))
+        eye = torch.eye(L, 64, device=dev, dtype=torch.bfloat16)  # row j = e_j
+        v = eye.repeat(1, heads).expand(B, L, W).contiguous()
+        g = torch.zeros(B, L, W, device=dev, dtype=torch.bfloat16)
+        rows = torch.arange(B, device=dev)
+        g[rows, rows, 0::64] = 1
+        out = A.pair_attention(q, k, v, causal=causal, heads=heads)
+        dv = A.pair_attention_bwd(q, k, v, g, causal=causal, heads=heads)[2]
+        fwd_p = out[rows, rows].view(B, heads, 64)[:, :, :L]  # [i, h, j]
+        bwd_p = dv[:, :, 0::64].permute(0, 2, 1)  # dv[i, j, 64 h] -> [i, h, j]
+        torch.cuda.synchronize()
+        if not torch.equal(fwd_p, bwd_p):
+            n = int((fwd_p != bwd_p).sum())
+            raise AssertionError(f"p at L={L} causal={causal}: {n} of {fwd_p.numel()} "
+                                 f"values differ between the forward and the backward")
+        sums = fwd_p.float().sum(-1)
+        if not bool(((sums - 1).abs() < 0.05).all()):
+            raise AssertionError(f"p at L={L} causal={causal}: rows sum to {sums}")
+        log(f"p identity bf16 L={L} causal={causal}: forward round(p) == backward "
+            f"round(p), {fwd_p.numel()} values bit for bit")
 
 
 def check_tower_gradients(dev, params):
@@ -976,10 +1073,10 @@ def check_tower_gradients(dev, params):
     return worst
 
 
-def finetune_path(dev, gen, params, bwd, card):
+def finetune_path(dev, gen, params, attn, bwd, card):
     """Phase 8c: CLIPFineTuner steps on ViT-B/32 at FT_BATCH, f32 and bf16,
     then one step of the default projection-only config. Returns (records,
-    K5 launches, K6 launches) of this path."""
+    K5 launches, K6 launches) of this path, by input type."""
     import torch
 
     from seesaw_tpu_torch.models.clip import ClipEmbedding
@@ -987,9 +1084,10 @@ def finetune_path(dev, gen, params, bwd, card):
     from seesaw_tpu_torch.utils import rounds as R
 
     records = []
-    A.pair_attention.launches = A.pair_attention_bwd.launches = 0  # this path's launches
+    A.reset_launch_counts()  # this path's launches
     for dtype in ("float32", "bfloat16"):
         emb = ClipEmbedding("vit-b32", device=dev, params=params, dtype=getattr(torch, dtype))
+        before = [dict(f.launches_by_dtype) for f in (A.pair_attention, A.pair_attention_bwd)]
         out = R.drive_finetune(emb, FT_CONFIG, device=dev, batch=FT_BATCH, steps=FT_STEPS,
                                warmup_steps=FT_WARMUP, generator=gen)
         losses = out["losses"]
@@ -999,15 +1097,26 @@ def finetune_path(dev, gen, params, bwd, card):
         if out["fwd_launches"] != want or out["bwd_launches"] != want:
             raise AssertionError(f"fine-tune {dtype}: K5 launches {out['fwd_launches']}, "
                                  f"K6 {out['bwd_launches']} a step")
+        # every launch of the step took the step's type's kernels
+        for f, b in zip((A.pair_attention, A.pair_attention_bwd), before):
+            got = {t: f.launches_by_dtype[t] - b[t] for t in b}
+            if got[dtype] != sum(want) or sum(got.values()) != sum(want):
+                raise AssertionError(f"fine-tune {dtype}: launches by type {got}")
         ms = float(np.mean(out["step_ms"]))
         k6 = {r["case"]: r["ms"] for r in bwd if r["dtype"] == dtype and r["B"] == FT_BATCH}
+        # K5 at the step's shapes where phase 7a has them (bf16)
+        k5 = {r["case"]: r["ms"] for r in attn if r["dtype"] == dtype and r["B"] == FT_BATCH}
         rec = dict(dtype=dtype, step_ms=ms, p50_step_ms=float(np.median(out["step_ms"])),
+                   min_step_ms=float(min(out["step_ms"])), max_step_ms=float(max(out["step_ms"])),
                    pairs_per_s=FT_BATCH / ms * 1e3,
                    k6_share=TOWER_LAYERS * (k6["vit-b32 vision"] + k6["text"]) / ms,
+                   k5_share=(TOWER_LAYERS * (k5["vit-b32 vision"] + k5["text"]) / ms
+                             if {"vit-b32 vision", "text"} <= k5.keys() else None),
                    peak_gb=out["peak_gb"], losses=losses)
         log(f"[{card}] fine-tune vit-b32 B={FT_BATCH} {dtype}: step_ms={ms!r} "
             f"p50_step_ms={rec['p50_step_ms']!r} pairs_per_s={rec['pairs_per_s']!r} "
-            f"k6_share={rec['k6_share']!r} peak device memory GB={rec['peak_gb']!r} "
+            f"k6_share={rec['k6_share']!r} k5_share={rec['k5_share']!r} "
+            f"peak device memory GB={rec['peak_gb']!r} "
             f"losses={losses} step_ms_all={out['step_ms']}")
         records.append(rec)
         del emb, out
@@ -1021,7 +1130,8 @@ def finetune_path(dev, gen, params, bwd, card):
         f"step_ms={out['step_ms'][0]!r}, K6 launches 0")
     del emb, out
     torch.cuda.empty_cache()
-    return records, A.pair_attention.launches, A.pair_attention_bwd.launches
+    return (records, dict(A.pair_attention.launches_by_dtype),
+            dict(A.pair_attention_bwd.launches_by_dtype))
 
 
 def check_textual_cuda_vs_cpu():
@@ -1088,9 +1198,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # one nvcc each, together
-    _build.load_libraries("fused_frame_max", "knn_spmv", "pair_attention")
-    log(f"build fused_frame_max, knn_spmv, pair_attention: {time.perf_counter() - t0!r} s "
-        f"(nvcc seconds {_build.build_seconds})")
+    _build.load_libraries("fused_frame_max", "knn_spmv", "pair_attention",
+                          "pair_attention_bf16")
+    log(f"build fused_frame_max, knn_spmv, pair_attention, pair_attention_bf16: "
+        f"{time.perf_counter() - t0!r} s (nvcc seconds {_build.build_seconds})")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     scan, worst = check_scan(dev, gen)
@@ -1118,8 +1229,10 @@ def main() -> int:
     vision, vision_launches = vision_throughput(dev, gen, clip_params, attn)
     torch.cuda.synchronize()
     bwd = check_attention_bwd(dev, gen)
+    check_p_identity(dev, gen)
     grad_err = check_tower_gradients(dev, clip_params)
-    finetune, ft_fwd_launches, ft_bwd_launches = finetune_path(dev, gen, clip_params, bwd, card)
+    finetune, ft_fwd_launches, ft_bwd_launches = finetune_path(dev, gen, clip_params, attn, bwd,
+                                                               card)
     check_textual_cuda_vs_cpu()
     torch.cuda.synchronize()
     bad = [m for m in sys.modules
@@ -1130,6 +1243,13 @@ def main() -> int:
     bf16 = next(r for r in scan if r["dtype"] == "bfloat16")
     text_query = next(r for r in attn if r["case"] == "text query")
     vit_bwd = next(r for r in bwd if r["case"] == "vit-b32 vision" and r["dtype"] == "float32")
+    # the bf16 kernels at fine-tuning's ViT-B/32 vision layer (B=256, L=50, W=768)
+    vit_fwd16 = next(r for r in attn if r["case"] == "vit-b32 vision" and r["B"] == FT_BATCH)
+    vit_bwd16 = next(r for r in bwd if r["case"] == "vit-b32 vision" and r["dtype"] == "bfloat16")
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+              "library_device_ms")
+    f32_fwd, bf16_fwd = ([r for r in attn if r["dtype"] == t] for t in ("float32", "bfloat16"))
+    f32_bwd, bf16_bwd = ([r for r in bwd if r["dtype"] == t] for t in ("float32", "bfloat16"))
     log(json.dumps({"kernels": [{
         "name": "fused_frame_max", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/fused_frame_max.cu",
@@ -1154,28 +1274,54 @@ def main() -> int:
         "name": "pair_attention", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/pair_attention.cu",
         "replaces": "seesaw_tpu/ops/pallas_attention.py:91",
-        # phase 5's text queries (12 per session); the vision forwards of 7d
+        # f32 on the CUDA cores; bf16 is pair_attention_bf16 below
+        # phase 5's text queries (12 per session); the f32 forwards of 7d and 8c
         "launches": attn_launches,
         "launches_by_path": {"text_query_sessions": attn_launches,
-                             "vision_encode": vision_launches,
-                             "finetune": ft_fwd_launches},
-        "max_abs_err": max(r["max_abs_err"] for r in attn),
+                             "vision_encode": vision_launches["float32"],
+                             "finetune": ft_fwd_launches["float32"]},
+        "max_abs_err": max(r["max_abs_err"] for r in f32_fwd),
         # at the main path's shape (the text query: B=1, L=77, W=512, causal)
-        **{k: text_query[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
+        **{k: text_query[k] for k in timing},
         "text_encode_p50_ms": text_p50,
-        "cases": attn, "vision_vit_b32": vision,
+        "cases": f32_fwd, "vision_vit_b32": vision,
+    }, {
+        "name": "pair_attention_bf16", "route": "cuda",
+        "source": "seesaw_tpu_torch/csrc/pair_attention_bf16.cu",
+        "replaces": "seesaw_tpu/ops/pallas_attention.py:91",
+        # bf16 on the tensor cores: phase 8c's bf16 steps (24 a step) and the
+        # bf16 vision forwards of 7d
+        "launches": ft_fwd_launches["bfloat16"],
+        "launches_by_path": {"vision_encode": vision_launches["bfloat16"],
+                             "finetune": ft_fwd_launches["bfloat16"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_fwd),
+        "max_ulps": max(r["max_ulps"] for r in bf16_fwd),
+        "share_differing": max(r["share_differing"] for r in bf16_fwd),
+        **{k: vit_fwd16[k] for k in timing},
+        "cases": bf16_fwd,
     }, {
         "name": "pair_attention_bwd", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/pair_attention.cu",
         "replaces": "seesaw_tpu/ops/pallas_attention.py:115",
-        # phase 8c's fine-tuning steps: 24 a step (12 vision, 12 text layers)
-        "launches": ft_bwd_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in bwd),
+        # f32 on the CUDA cores: phase 8c's f32 steps, 24 a step (12 vision,
+        # 12 text layers)
+        "launches": ft_bwd_launches["float32"],
+        "max_abs_err": max(r["max_abs_err"] for r in f32_bwd),
         # at the main path's shape (fine-tuning's ViT-B/32 vision layer, f32)
-        **{k: vit_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "cases": bwd, "finetune_vit_b32": finetune,
+        **{k: vit_bwd[k] for k in timing},
+        "cases": f32_bwd, "finetune_vit_b32": finetune,
         "tower_gradient_rel_err": grad_err,
+    }, {
+        "name": "pair_attention_bwd_bf16", "route": "cuda",
+        "source": "seesaw_tpu_torch/csrc/pair_attention_bf16.cu",
+        "replaces": "seesaw_tpu/ops/pallas_attention.py:115",
+        # bf16 on the tensor cores: phase 8c's bf16 steps, 24 a step
+        "launches": ft_bwd_launches["bfloat16"],
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_bwd),
+        "max_ulps": max(r["max_ulps"] for r in bf16_bwd),
+        "share_differing": max(r["share_differing"] for r in bf16_bwd),
+        **{k: vit_bwd16[k] for k in timing},
+        "cases": bf16_bwd,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

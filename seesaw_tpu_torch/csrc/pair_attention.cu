@@ -1,5 +1,6 @@
-// Pair attention, forward (K5) and backward (K6): softmax(q k^T / 8) v per
-// 64-wide head, the attention of every layer of both CLIP towers.
+// Pair attention in f32, forward (K5) and backward (K6): softmax(q k^T / 8) v
+// per 64-wide head, the attention of every layer of both CLIP towers. bf16
+// inputs take the tensor-core kernels of pair_attention_bf16.cu.
 //
 // Replaces the Pallas TPU kernels seesaw_tpu/ops/pallas_attention.py::
 // _attn_kernel (forward, called through fused_pair_attention) and
@@ -32,8 +33,9 @@
 // (L = 257) at the 67 TFLOP/s f32 rate of the CUDA cores. The backward does
 // 5 products of the forward's size per kept pair where the forward does 2
 // (the logits twice, dp twice, then dq, dk, dv: 7 in this two-pass design).
-// TF32 and the tensor cores are left out: f32 must stay exact f32, and bf16
-// through mma/wgmma is later work.
+// TF32 and the tensor cores are left out: f32 must stay exact f32. The Io
+// template keeps the input type apart from the f32 arithmetic; only f32 is
+// instantiated.
 //
 // Design (simple first). Forward: one block per (image, head, tile of TQ
 // query rows), 8 warps of R rows each (R = 8 up to L = 64, else 4: fewer
@@ -72,7 +74,6 @@
 // rows at once does not fit 227 KB at L = 257.
 // The TPU kernels' head-pair packing, batch padding and VMEM block caps are
 // not carried over: they fill a 128-lane MXU and fit VMEM.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -85,8 +86,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStride = kHeadDim + 1;  // padded key / value row
 constexpr int kMaxLen = 384;
-
-enum Kind : int { kF32 = 0, kBF16 = 1 };
 
 template <typename T>
 struct Io;
@@ -103,24 +102,6 @@ struct Io<float> {
   }
   __device__ static float round(float x) { return x; }
   __device__ static void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int kPerVec = 8;
-  __device__ static void load(const __nv_bfloat16* src, float* dst) {
-    const uint4 x = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  // round to the nearest bf16 (ties to even), as jnp's astype and torch's to()
-  __device__ static float round(float x) { return __bfloat162float(__float2bfloat16(x)); }
-  __device__ static void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -601,46 +582,29 @@ bool bad_shape(int B, int L, int H) { return L < 1 || L > kMaxLen || H < 1 || B 
 
 }  // namespace
 
-// kind: 0 f32, 1 bf16. q, k, v, out: (B, L, H * 64) contiguous, 16-byte
-// aligned (the caller checks). 1 <= L <= 384. Returns cudaGetLastError()
-// after the launch (or the error of raising the shared-memory limit).
-extern "C" int seesaw_pair_attention(int kind, const void* q, const void* k, const void* v,
-                                     void* out, int B, int L, int H, int causal,
-                                     void* stream) {
+// q, k, v, out: (B, L, H * 64) f32, contiguous, 16-byte aligned (the caller
+// checks). 1 <= L <= 384. Returns cudaGetLastError() after the launch (or
+// the error of raising the shared-memory limit).
+extern "C" int seesaw_pair_attention(const void* q, const void* k, const void* v, void* out,
+                                     int B, int L, int H, int causal, void* stream) {
   if (bad_shape(B, L, H)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case kF32:
-      return causal ? fwd_len<float, true>(q, k, v, out, B, L, H, s)
-                    : fwd_len<float, false>(q, k, v, out, B, L, H, s);
-    case kBF16:
-      return causal ? fwd_len<__nv_bfloat16, true>(q, k, v, out, B, L, H, s)
-                    : fwd_len<__nv_bfloat16, false>(q, k, v, out, B, L, H, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return causal ? fwd_len<float, true>(q, k, v, out, B, L, H, s)
+                : fwd_len<float, false>(q, k, v, out, B, L, H, s);
 }
 
 // The backward: dq, dk, dv (each like q) for the output gradient g (like q),
 // stats a scratch of 3 * B * H * L floats. Two launches on `stream`; returns
 // the first CUDA error.
-extern "C" int seesaw_pair_attention_bwd(int kind, const void* q, const void* k,
-                                         const void* v, const void* g, void* dq, void* dk,
-                                         void* dv, void* stats, int B, int L, int H,
-                                         int causal, void* stream) {
+extern "C" int seesaw_pair_attention_bwd(const void* q, const void* k, const void* v,
+                                         const void* g, void* dq, void* dk, void* dv,
+                                         void* stats, int B, int L, int H, int causal,
+                                         void* stream) {
   if (bad_shape(B, L, H)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  switch (kind) {
-    case kF32:
-      return causal ? bwd_len<float, true>(q, k, v, g, dq, dk, dv, st, B, L, H, s)
-                    : bwd_len<float, false>(q, k, v, g, dq, dk, dv, st, B, L, H, s);
-    case kBF16:
-      return causal ? bwd_len<__nv_bfloat16, true>(q, k, v, g, dq, dk, dv, st, B, L, H, s)
-                    : bwd_len<__nv_bfloat16, false>(q, k, v, g, dq, dk, dv, st, B, L, H, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return causal ? bwd_len<float, true>(q, k, v, g, dq, dk, dv, st, B, L, H, s)
+                : bwd_len<float, false>(q, k, v, g, dq, dk, dv, st, B, L, H, s);
 }

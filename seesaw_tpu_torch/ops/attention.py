@@ -9,11 +9,14 @@ before P·V, P·V accumulates in f32, and the output is in the input type.
 `causal=True` keeps key <= query (the text tower).
 
 `pair_attention` is a `torch.autograd.Function` that saves q, k and v (not
-p), as the JAX custom VJP saves them. On a CUDA tensor its forward launches
-`seesaw_pair_attention` and its backward `seesaw_pair_attention_bwd`, both
-hand-written kernels in `csrc/pair_attention.cu`, or raises; on a CPU tensor
-they run `pair_attention_plain` and `pair_attention_bwd_plain`, the same
-functions in plain PyTorch. Double backward is not supported.
+p), as the JAX custom VJP saves them. On a CUDA tensor its forward and
+backward launch hand-written kernels or raise: f32 the CUDA-core kernels
+`seesaw_pair_attention` and `seesaw_pair_attention_bwd` of
+`csrc/pair_attention.cu`, bf16 the tensor-core kernels
+`seesaw_pair_attention_bf16` and `seesaw_pair_attention_bwd_bf16` of
+`csrc/pair_attention_bf16.cu`. On a CPU tensor they run
+`pair_attention_plain` and `pair_attention_bwd_plain`, the same functions in
+plain PyTorch. Double backward is not supported.
 
 The TPU kernels' head-pair block-diagonal packing, batch padding to the
 block and VMEM block caps are not carried over: they fill the MXU's 128-deep
@@ -28,7 +31,12 @@ from torch.autograd.function import once_differentiable
 
 HEAD_DIM = 64
 MAX_LEN = 384
-_KIND = {torch.float32: 0, torch.bfloat16: 1}
+# input type -> (library, forward entry, backward entry)
+_ROUTES = {
+    torch.float32: ("pair_attention", "seesaw_pair_attention", "seesaw_pair_attention_bwd"),
+    torch.bfloat16: ("pair_attention_bf16", "seesaw_pair_attention_bf16",
+                     "seesaw_pair_attention_bwd_bf16"),
+}
 
 
 def _check(q, k, v, heads):
@@ -49,7 +57,7 @@ def _check(q, k, v, heads):
         raise ValueError(
             f"short-sequence kernel: L={L} > {MAX_LEN} (CLIP towers: 50, 77, 197, 257)"
         )
-    if q.dtype not in _KIND or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be f32 or all bf16 (got {q.dtype}, "
                         f"{k.dtype}, {v.dtype})")
     return B, L, W // HEAD_DIM
@@ -114,18 +122,30 @@ def pair_attention_bwd_plain(q, k, v, g, *, causal: bool = False,
     return tuple(_merge(t, B, L, H, q.dtype) for t in (dq, dk, dv))
 
 
-def _launch(fn_name, argtypes, args, device):
-    """Call a kernel entry of `csrc/pair_attention.cu` on `device`'s current
-    stream; raises on the CUDA error it returns."""
+def _launch(lib, fn_name, argtypes, args, device):
+    """Call a kernel entry of `csrc/<lib>.cu` on `device`'s current stream;
+    raises on the CUDA error it returns."""
     from .._build import load_library
 
-    fn = getattr(load_library("pair_attention"), fn_name)
+    fn = getattr(load_library(lib), fn_name)
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
+
+
+def _count(wrapper, dtype):
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[str(dtype).removeprefix("torch.")] += 1
+
+
+def reset_launch_counts():
+    """Zero both wrappers' launch counts, the totals and the per-type split."""
+    for wrapper in (pair_attention, pair_attention_bwd):
+        wrapper.launches = 0
+        wrapper.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def _check_cuda(*ts):
@@ -148,10 +168,11 @@ def _forward(q, k, v, causal, heads):
     if B == 0:
         return out
     P, I = ctypes.c_void_p, ctypes.c_int
-    _launch("seesaw_pair_attention", [I, P, P, P, P, I, I, I, I],
-            [_KIND[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), B, L, H, int(causal)], q.device)
-    pair_attention.launches += 1
+    lib, entry, _ = _ROUTES[q.dtype]
+    _launch(lib, entry, [P, P, P, P, I, I, I, I],
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H,
+             int(causal)], q.device)
+    _count(pair_attention, q.dtype)
     return out
 
 
@@ -173,11 +194,12 @@ def pair_attention_bwd(q, k, v, g, *, causal: bool = False, heads: int | None = 
     # per row: the softmax max and sum, and r = rowsum(p ∘ dp)
     stats = torch.empty(3, B * H * L, dtype=torch.float32, device=q.device)
     P, I = ctypes.c_void_p, ctypes.c_int
-    _launch("seesaw_pair_attention_bwd", [I, P, P, P, P, P, P, P, P, I, I, I, I],
-            [_KIND[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-             B, L, H, int(causal)], q.device)
-    pair_attention_bwd.launches += 1
+    lib, _, entry = _ROUTES[q.dtype]
+    _launch(lib, entry, [P, P, P, P, P, P, P, P, I, I, I, I],
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, L, H, int(causal)],
+            q.device)
+    _count(pair_attention_bwd, q.dtype)
     return dq, dk, dv
 
 
@@ -206,5 +228,6 @@ def pair_attention(q, k, v, *, causal: bool = False, heads: int | None = None):
     return _PairAttention.apply(q, k, v, causal, heads)
 
 
-pair_attention.launches = 0  # forward kernel launches in this process (CUDA only)
-pair_attention_bwd.launches = 0  # backward kernel launches (CUDA only)
+# kernel launches in this process (CUDA only), forward and backward, in all
+# and by input type ("float32": CUDA cores, "bfloat16": tensor cores)
+reset_launch_counts()

@@ -18,10 +18,12 @@ Tolerances:
   `pair_attention_plain`) changes about half of dq and dk and fails it.
 - The vision tower's gradients 1e-4 (f32 sums in another order through
   two layers and their backward).
-- The CUDA kernel against the plain backward: f32 1e-5; bf16 rtol 2^-7 /
-  atol 1e-3 (a one-ulp flip where ds or the output lands on a rounding
-  boundary) with at most 0.1% of the elements differing (chip_smoke.py's
-  BWD_MAX_SHARE), and two runs bit-identical.
+- The CUDA kernel against the plain backward: f32 1e-5; bf16 (tensor
+  cores, logits and dp summed in another order than the plain version's f32
+  GEMMs) rtol 2^-7 / atol 1e-3 (a one-ulp flip where p, ds or the output
+  lands on a rounding boundary) with at most 0.1% of the elements differing
+  (chip_smoke.py's BWD_MAX_SHARE), and two runs bit-identical.
+- p in the forward and in the backward: bit for bit (one-hot v and g).
 """
 import sys
 from pathlib import Path
@@ -37,7 +39,7 @@ from seesaw_tpu.ops.pallas_attention import fused_pair_attention
 from seesaw_tpu_torch.ops import attention as tatt
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from test_torch_attention import TORCH_DTYPE, _np, _qkv  # noqa: E402
+from test_torch_attention import CUDA_SHAPES, TORCH_DTYPE, _no_build, _np, _qkv  # noqa: E402
 
 F32_TOL = dict(atol=5e-5, rtol=5e-5)
 BF16_MAX_SHARE, BF16_ATOL = 0.01, 4e-3
@@ -172,6 +174,53 @@ def test_cpu_backward_counts_no_launch():
     assert tatt.pair_attention_bwd.launches == before
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_cpu_bf16_backward_loads_no_library_and_counts_no_launch(monkeypatch, causal):
+    from seesaw_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "load_libraries", _no_build)
+    _, (q, k, v, g) = _inputs(9, 2, 33, 128, "bfloat16")
+    before = tatt.pair_attention_bwd.launches, dict(tatt.pair_attention_bwd.launches_by_dtype)
+    got = tatt.pair_attention_bwd(q, k, v, g, causal=causal)
+    for a, b in zip(got, tatt.pair_attention_bwd_plain(q, k, v, g, causal=causal)):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (tatt.pair_attention_bwd.launches,
+            tatt.pair_attention_bwd.launches_by_dtype) == before
+
+
+def _p_both_ways(q1, k1, causal, heads, forward, backward):
+    """round(p) of every row of one head set (q1, k1: (1, L, 64 heads)) read
+    off the forward (v one-hot: v_j = e_j, so out_i = round(p_i)) and off the
+    backward (image i has g = e_0 on row i, so dv[i, j, 64 h] = round(p_ij)),
+    each as (L, heads, L)."""
+    _, L, W = q1.shape
+    q, k = (t.expand(L, L, W).contiguous() for t in (q1, k1))
+    v = torch.eye(L, 64, dtype=q1.dtype).repeat(1, heads).expand(L, L, W).contiguous()
+    g = torch.zeros(L, L, W, dtype=q1.dtype)
+    rows = torch.arange(L)
+    g[rows, rows, 0::64] = 1
+    out = forward(q, k, v, causal=causal)
+    dv = backward(q, k, v, g, causal=causal)[2]
+    return (out[rows, rows].view(L, heads, 64)[:, :, :L],
+            dv[:, :, 0::64].permute(0, 2, 1))
+
+
+@pytest.mark.parametrize("L,causal", [(50, False), (13, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_p_is_one_in_forward_and_backward(L, causal, dtype):
+    """The plain versions recompute p in the backward with the forward's
+    function: the two read-outs agree bit for bit, and each row sums to ~1."""
+    _, (q1, k1, _, _) = _inputs(10, 1, L, 128, dtype)
+    fwd_p, bwd_p = _p_both_ways(q1, k1, causal, 2, tatt.pair_attention_plain,
+                                tatt.pair_attention_bwd_plain)
+    assert fwd_p.dtype == TORCH_DTYPE[dtype] and fwd_p.shape == (L, 2, L)
+    assert torch.equal(fwd_p, bwd_p)
+    torch.testing.assert_close(fwd_p.float().sum(-1), torch.ones(L, 2), atol=0.05, rtol=0)
+    if causal:  # row i sees keys j <= i only
+        assert not fwd_p.permute(1, 0, 2).float().triu(1).any()
+
+
 def test_vision_tower_gradients_match_jax(monkeypatch):
     """The config of tests/test_pallas_attention.py:204-235: every gradient
     of sum(tower(pixels)^2), the JAX side through its Pallas forward and
@@ -212,25 +261,41 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,W,causal", [
-    (3, 13, 128, True), (5, 1, 256, False), (4, 50, 768, False), (2, 77, 512, True),
-    (2, 197, 768, False), (2, 257, 1024, False), (1, 384, 128, True),
-])
+@pytest.mark.parametrize("B,L,W,causal", CUDA_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_backward_matches_plain(cuda_device, B, L, W, causal, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v, g = (torch.randn(B, L, W, device=cuda_device, generator=gen)
                   .to(TORCH_DTYPE[dtype]) for _ in range(4))
-    before = tatt.pair_attention_bwd.launches
+    before = tatt.pair_attention_bwd.launches, tatt.pair_attention_bwd.launches_by_dtype[dtype]
     got = tatt.pair_attention_bwd(q, k, v, g, causal=causal, heads=W // 64)
     again = tatt.pair_attention_bwd(q, k, v, g, causal=causal)
     want = tatt.pair_attention_bwd_plain(q, k, v, g, causal=causal)
     torch.cuda.synchronize()
-    assert tatt.pair_attention_bwd.launches == before + 2
+    assert tatt.pair_attention_bwd.launches == before[0] + 2
+    assert tatt.pair_attention_bwd.launches_by_dtype[dtype] == before[1] + 2
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=2**-7, atol=1e-3)
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)  # no atomics: the same bits every run
         torch.testing.assert_close(a.float(), c.float(), **tol)
         if dtype == "bfloat16":
             assert float((a != c).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,causal", [(50, False), (13, True), (64, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_p_is_one_in_forward_and_backward(cuda_device, L, causal, dtype):
+    """The kernels' forward and backward give p bit for bit alike."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q1, k1 = (torch.randn(1, L, 128, device=cuda_device, generator=gen).to(TORCH_DTYPE[dtype])
+              for _ in range(2))
+
+    def on_card(fn):
+        return lambda *ts, causal: fn(*(t.to(cuda_device) for t in ts), causal=causal)
+
+    fwd_p, bwd_p = _p_both_ways(q1.cpu(), k1.cpu(), causal, 2, on_card(tatt.pair_attention),
+                                on_card(tatt.pair_attention_bwd))
+    torch.cuda.synchronize()
+    assert torch.equal(fwd_p, bwd_p)
