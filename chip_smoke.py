@@ -9,7 +9,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 2. build the kernels from `seesaw_tpu_torch/csrc` with nvcc, one process
    per source, started together: the fused frame-max scan, the kNN
    SpMV / Jacobi step and the pair attention of the CLIP towers (f32 on the
-   CUDA cores, bf16 on the tensor cores).
+   tensor cores through the 3xTF32 split, bf16 on the tensor cores).
 3. each kernel vs its plain PyTorch version on the card, with CUDA-event
    times (kernel and plain version alternated) and the time of the nearest
    single PyTorch call:
@@ -47,7 +47,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 7. the CLIP towers (`seesaw_tpu_torch.models.clip`), all at full width:
    a. the pair-attention kernel against its plain version at the towers'
       shapes (ViT-B/32 vision B=1024 f32 and bf16 and fine-tuning's B=256
-      in bf16; text B=1 and B=64 causal, and B=256 in bf16; ViT-B/16 vision
+      in both; text B=1 and B=64 causal, and B=256 in both; ViT-B/16 vision
       L=197 f32 and bf16; ViT-L/14 vision L=257 f32 and bf16; small ragged
       cases), two runs bit-identical, CUDA-event times alternated, library
       call `scaled_dot_product_attention` on the head-split layout; device
@@ -68,15 +68,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       library call `torch.autograd.grad` through
       `scaled_dot_product_attention` on the head-split layout (backward
       only: the graph is built outside the timed calls), device times as
-      in 7a; then p bit-identical in the bf16 forward and backward (v and g
-      one-hot, L = 50 and L = 13 causal);
+      in 7a; then p bit-identical in the forward and backward, f32 and bf16
+      (v and g one-hot, L = 50 and L = 13 causal);
    b. one contrastive step of ViT-B/32 at B=8 with every parameter
       trainable, f32: every gradient on the card against the CPU's, 24 K6
       launches (12 vision and 12 text layers);
    c. `CLIPFineTuner` on ViT-B/32 at B=256, lr 1e-5, weight decay 0.1,
       warmup 2, f32 and bf16: 2 warm-up then 8 timed steps, ms a step,
       pairs/s, K6's share of a step, peak memory; 24 K5 and 24 K6 launches
-      a step, all of the step's type (f32: CUDA cores, bf16: tensor cores),
+      a step, all of the step's type (f32: 3xTF32, bf16: bf16 tensor cores),
       finite losses, the last below the first; then one step with
       the default `text/projection` config, which must launch no K6;
    d. `textual` sessions (linear and finetune modes) on a root like phase
@@ -111,7 +111,8 @@ TOL = {  # kernel vs plain version, same bytes in
 SPMV_TOL = dict(rtol=2e-5, atol=2e-6)
 GRAPH_K = 32  # bench.py bench_graph_10M
 # pair attention vs plain version, same inputs: f32 sums of 64-term logits
-# and L-term P.V in another order (the f32 kernel's fmaf chains). bf16: the
+# and L-term P.V in another order, each product by the 3xTF32 split (~22
+# bits of each operand, tests/test_torch_attention_3xtf32.py). bf16: the
 # tensor cores sum the logits in another order than the plain version's f32
 # GEMM, so a logit moves by an f32 bit and flips one p's bf16 rounding, or an
 # output lands on the other side of its rounding boundary: one output ulp,
@@ -123,9 +124,11 @@ ATTN_MAX_SHARE = 1e-3
 ATTN_CASES = (  # (name, B, L, W, causal, dtype): the towers' shapes
     ("text query", 1, 77, 512, True, "float32"),
     ("text batch", 64, 77, 512, True, "float32"),
+    ("text", 256, 77, 512, True, "float32"),
     ("text", 256, 77, 512, True, "bfloat16"),
     ("vit-b32 vision", 1024, 50, 768, False, "float32"),
     ("vit-b32 vision", 1024, 50, 768, False, "bfloat16"),
+    ("vit-b32 vision", 256, 50, 768, False, "float32"),
     ("vit-b32 vision", 256, 50, 768, False, "bfloat16"),
     ("vit-b16 vision", 256, 197, 768, False, "float32"),
     ("vit-b16 vision", 256, 197, 768, False, "bfloat16"),
@@ -178,11 +181,15 @@ TEXTUAL_OPTIONS = {"linear": dict(_TEXTUAL, mode="linear"),
 # input type (f32 outside the tensor cores; bf16 and int8 dense tensor rates)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# the f32 attention kernels' route: three TF32 products (495 TFLOP/s dense)
+# for each f32 product
+PEAK_OPS_3XTF32 = 495e12 / 3
 
 
-def bound(n_bytes: float, n_ops: float, dtype: str):
-    """(least ms the card could take, what bounds it)."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_OPS[dtype]
+def bound(n_bytes: float, n_ops: float, dtype: str, peak_ops: float | None = None):
+    """(least ms the card could take, what bounds it): operations at
+    `peak_ops`, else at the input type's peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / (peak_ops or PEAK_OPS[dtype])
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -744,10 +751,11 @@ def knnprop_path(idx, dev, gen, card, rounds=8):
 def attention_bound(B, L, W, causal, dtype):
     """q, k, v read once and out written once; 2 x 2 x 64 operations per
     query-key pair that the mask keeps (Q K^T and P V; the softmax's
-    exponentials are left out)."""
+    exponentials are left out); f32 at the 3xTF32 rate."""
     pairs = L * (L + 1) // 2 if causal else L * L
     elem = 4 if dtype == "float32" else 2
-    return bound(4 * B * L * W * elem, 4 * 64 * B * (W // 64) * pairs, dtype)
+    peak = PEAK_OPS_3XTF32 if dtype == "float32" else None
+    return bound(4 * B * L * W * elem, 4 * 64 * B * (W // 64) * pairs, dtype, peak)
 
 
 def check_attention(dev, gen):
@@ -910,10 +918,12 @@ def vision_throughput(dev, gen, params, attn):
 def attention_bwd_bound(B, L, W, causal, dtype):
     """q, k, v and g read once, dq, dk and dv written once (7 B L W
     elements); 5 x 2 x 64 operations per query-key pair that the mask keeps,
-    per head (the logits, dp, dq, dk and dv; the softmax left out)."""
+    per head (the logits, dp, dq, dk and dv; the softmax left out); f32 at
+    the 3xTF32 rate."""
     pairs = L * (L + 1) // 2 if causal else L * L
     elem = 4 if dtype == "float32" else 2
-    return bound(7 * B * L * W * elem, 5 * 2 * 64 * B * (W // 64) * pairs, dtype)
+    peak = PEAK_OPS_3XTF32 if dtype == "float32" else None
+    return bound(7 * B * L * W * elem, 5 * 2 * 64 * B * (W // 64) * pairs, dtype, peak)
 
 
 def check_attention_bwd(dev, gen):
@@ -991,23 +1001,25 @@ def check_attention_bwd(dev, gen):
 
 
 def check_p_identity(dev, gen, heads=2):
-    """Phase 8a: p bit-identical in the bf16 forward and backward kernels.
-    Image b takes query row b of one q and k (B = L <= 64); v_j = e_j in
-    every head, so the forward's output row b is round(p_b) exactly; g is
-    e_0 on row b of each head, so the backward's dv[b, j, 64h] is
+    """Phase 8a: p bit-identical in the forward and backward kernels, f32
+    and bf16. Image b takes query row b of one q and k (B = L <= 64); v_j =
+    e_j in every head, so the forward's output row b is round(p_b) exactly
+    (f32: big + small of p's 3xTF32 split, summed alike in both kernels); g
+    is e_0 on row b of each head, so the backward's dv[b, j, 64h] is
     round(p_bj) exactly."""
     import torch
 
     from seesaw_tpu_torch.ops import attention as A
 
     W = 64 * heads
-    for L, causal in ((50, False), (13, True)):
+    for dtype, L, causal in ((t, L, c) for t in (torch.float32, torch.bfloat16)
+                             for L, c in ((50, False), (13, True))):
         B = L
-        q, k = (torch.randn(1, L, W, device=dev, generator=gen).to(torch.bfloat16)
+        q, k = (torch.randn(1, L, W, device=dev, generator=gen).to(dtype)
                 .expand(B, L, W).contiguous() for _ in range(2))
-        eye = torch.eye(L, 64, device=dev, dtype=torch.bfloat16)  # row j = e_j
+        eye = torch.eye(L, 64, device=dev, dtype=dtype)  # row j = e_j
         v = eye.repeat(1, heads).expand(B, L, W).contiguous()
-        g = torch.zeros(B, L, W, device=dev, dtype=torch.bfloat16)
+        g = torch.zeros(B, L, W, device=dev, dtype=dtype)
         rows = torch.arange(B, device=dev)
         g[rows, rows, 0::64] = 1
         out = A.pair_attention(q, k, v, causal=causal, heads=heads)
@@ -1017,13 +1029,14 @@ def check_p_identity(dev, gen, heads=2):
         torch.cuda.synchronize()
         if not torch.equal(fwd_p, bwd_p):
             n = int((fwd_p != bwd_p).sum())
-            raise AssertionError(f"p at L={L} causal={causal}: {n} of {fwd_p.numel()} "
-                                 f"values differ between the forward and the backward")
+            raise AssertionError(f"p {dtype} at L={L} causal={causal}: {n} of "
+                                 f"{fwd_p.numel()} values differ between the forward and "
+                                 f"the backward")
         sums = fwd_p.float().sum(-1)
         if not bool(((sums - 1).abs() < 0.05).all()):
-            raise AssertionError(f"p at L={L} causal={causal}: rows sum to {sums}")
-        log(f"p identity bf16 L={L} causal={causal}: forward round(p) == backward "
-            f"round(p), {fwd_p.numel()} values bit for bit")
+            raise AssertionError(f"p {dtype} at L={L} causal={causal}: rows sum to {sums}")
+        log(f"p identity {str(dtype).removeprefix('torch.')} L={L} causal={causal}: forward "
+            f"round(p) == backward round(p), {fwd_p.numel()} values bit for bit")
 
 
 def check_tower_gradients(dev, params):
@@ -1104,7 +1117,7 @@ def finetune_path(dev, gen, params, attn, bwd, card):
                 raise AssertionError(f"fine-tune {dtype}: launches by type {got}")
         ms = float(np.mean(out["step_ms"]))
         k6 = {r["case"]: r["ms"] for r in bwd if r["dtype"] == dtype and r["B"] == FT_BATCH}
-        # K5 at the step's shapes where phase 7a has them (bf16)
+        # K5 at the step's shapes (phase 7a has them in f32 and bf16)
         k5 = {r["case"]: r["ms"] for r in attn if r["dtype"] == dtype and r["B"] == FT_BATCH}
         rec = dict(dtype=dtype, step_ms=ms, p50_step_ms=float(np.median(out["step_ms"])),
                    min_step_ms=float(min(out["step_ms"])), max_step_ms=float(max(out["step_ms"])),
@@ -1244,7 +1257,8 @@ def main() -> int:
     text_query = next(r for r in attn if r["case"] == "text query")
     vit_bwd = next(r for r in bwd if r["case"] == "vit-b32 vision" and r["dtype"] == "float32")
     # the bf16 kernels at fine-tuning's ViT-B/32 vision layer (B=256, L=50, W=768)
-    vit_fwd16 = next(r for r in attn if r["case"] == "vit-b32 vision" and r["B"] == FT_BATCH)
+    vit_fwd16 = next(r for r in attn if r["case"] == "vit-b32 vision" and r["B"] == FT_BATCH
+                     and r["dtype"] == "bfloat16")
     vit_bwd16 = next(r for r in bwd if r["case"] == "vit-b32 vision" and r["dtype"] == "bfloat16")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
               "library_device_ms")
@@ -1274,7 +1288,7 @@ def main() -> int:
         "name": "pair_attention", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/pair_attention.cu",
         "replaces": "seesaw_tpu/ops/pallas_attention.py:91",
-        # f32 on the CUDA cores; bf16 is pair_attention_bf16 below
+        # f32 on the tensor cores by the 3xTF32 split; bf16 is pair_attention_bf16 below
         # phase 5's text queries (12 per session); the f32 forwards of 7d and 8c
         "launches": attn_launches,
         "launches_by_path": {"text_query_sessions": attn_launches,
@@ -1303,7 +1317,7 @@ def main() -> int:
         "name": "pair_attention_bwd", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/pair_attention.cu",
         "replaces": "seesaw_tpu/ops/pallas_attention.py:115",
-        # f32 on the CUDA cores: phase 8c's f32 steps, 24 a step (12 vision,
+        # f32 by the 3xTF32 split: phase 8c's f32 steps, 24 a step (12 vision,
         # 12 text layers)
         "launches": ft_bwd_launches["float32"],
         "max_abs_err": max(r["max_abs_err"] for r in f32_bwd),

@@ -10,9 +10,11 @@ before P·V, P·V accumulates in f32, and the output is in the input type.
 
 `pair_attention` is a `torch.autograd.Function` that saves q, k and v (not
 p), as the JAX custom VJP saves them. On a CUDA tensor its forward and
-backward launch hand-written kernels or raise: f32 the CUDA-core kernels
+backward launch hand-written kernels or raise: f32 the kernels
 `seesaw_pair_attention` and `seesaw_pair_attention_bwd` of
-`csrc/pair_attention.cu`, bf16 the tensor-core kernels
+`csrc/pair_attention.cu`, which run every product on the tensor cores
+through the 3xTF32 split (each f32 operand as two TF32 values, three TF32
+products summed in f32), bf16 the tensor-core kernels
 `seesaw_pair_attention_bf16` and `seesaw_pair_attention_bwd_bf16` of
 `csrc/pair_attention_bf16.cu`. On a CPU tensor they run
 `pair_attention_plain` and `pair_attention_bwd_plain`, the same functions in
@@ -229,5 +231,5 @@ def pair_attention(q, k, v, *, causal: bool = False, heads: int | None = None):
 
 
 # kernel launches in this process (CUDA only), forward and backward, in all
-# and by input type ("float32": CUDA cores, "bfloat16": tensor cores)
+# and by input type ("float32": 3xTF32, "bfloat16": bf16 tensor cores)
 reset_launch_counts()

@@ -153,12 +153,15 @@ def cuda_device():
 
 
 # the towers' shapes, and ragged lengths at the mma fragments' edges (1, 13,
-# 33, 77, 257 against 16-row and 8-key tiles), causal and not
+# 33, 77, 257 against 16-row and 8-key tiles), causal and not; small batches
+# take the f32 forward's small-grid kernel up to L = 128, and the last three
+# (batches that fill the card) its 4-warp kernel
 CUDA_SHAPES = [
     (3, 13, 128, False), (3, 13, 128, True), (4, 50, 768, False),
     (2, 77, 512, True), (2, 197, 768, False), (2, 257, 1024, False), (1, 384, 128, True),
     (5, 1, 256, False), (5, 1, 256, True), (3, 33, 256, False), (3, 33, 256, True),
     (2, 77, 512, False), (2, 257, 256, True),
+    (200, 13, 128, True), (48, 33, 256, True), (40, 77, 512, False),
 ]
 BF16_MAX_SHARE = 1e-3  # chip_smoke.py's ATTN_MAX_SHARE
 
