@@ -17,10 +17,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       shape and at the main path's shape (10M rows = 1.25M frames x 8 tiles
       x 512 dims); library call `torch.mv`;
    b. kNN SpMV and Jacobi step: a small ragged graph (N=3001, Kp=13, -1
-      padding, a hub, labeled and isolated rows) and the main path's graph
-      (10M x 32, window-local, `rounds.window_local_graph`); the Jacobi step
-      in both modes (running, and done: the output must stay untouched);
-      library call `torch.sparse.mm` on a CSR tensor of the same graph.
+      padding, a hub, labeled and isolated rows), the main path's graph
+      (10M x 32, window-local, `rounds.window_local_graph`) and a uniform
+      graph of the same size; the Jacobi step in both modes (running, and
+      done: the output must stay untouched); at 10M a step's time and a
+      100-step segment's (one launch) whose run converges after a few
+      steps, device and host ms, its two buffers (at the SpMV bar), steps
+      and done flag equal to the plain version's; library call
+      `torch.sparse.mm` on a CSR tensor of the same graph.
 4. port sessions on the card against the same sessions on the CPU, on a
    small synthetic root: plain, rocchio_update and log_reg2, then knn_prop2
    over a k=5 graph saved beside the index; same dbidxs every round, and the
@@ -43,7 +47,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    phase 5's int8 index, a 10M x 32 window-local graph made on the device,
    8 rounds of rank -> labels -> update with the configured ranker, then 8
    with warm_start. The Jacobi kernel's launch counter must rise every round
-   after round 0, and each round reads the host once per segment.
+   after round 0, by exactly the round's segments (one launch a segment),
+   and each round reads the host once per segment.
 7. the CLIP towers (`seesaw_tpu_torch.models.clip`), all at full width:
    a. the pair-attention kernel against its plain version at the towers'
       shapes (ViT-B/32 vision B=1024 f32 and bf16 and fine-tuning's B=256
@@ -197,40 +202,6 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, args_list) -> float:
-    """Mean ms per call over the argument list, by CUDA events."""
-    import torch
-
-    fn(*args_list[0])  # warm-up
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for args in args_list:
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / len(args_list)
-
-
-def device_ms(fn, args_list):
-    """Mean device ms per call over the argument list: the summed durations
-    of the device's kernels and copies under torch.profiler, so the host's
-    launches and autograd engine are left out. None where the profiler saw
-    no device activity (not measured)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*args_list[0])  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for args in args_list:
-            fn(*args)
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / len(args_list) if us > 0 else None
-
-
 def bf16_ulps(got, want):
     """(max distance in units of the bf16 ulp of the larger of the two
     values, share of elements that differ)."""
@@ -266,6 +237,7 @@ def check_scan(dev, gen):
     import torch
 
     from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.utils.profiling import cuda_ms
 
     records, worst = [], 0.0
     for dtype in ("float32", "bfloat16", "int8"):
@@ -335,6 +307,8 @@ def check_spmv_case(name, nbr, w, degree, gen, timed):
 
     from seesaw_tpu_torch.ops import spmv
     from seesaw_tpu_torch.ops.propagation import propagate
+    from seesaw_tpu_torch.utils import rounds as R
+    from seesaw_tpu_torch.utils.profiling import cuda_ms
 
     dev = nbr.device
     n, K = nbr.shape
@@ -404,6 +378,21 @@ def check_spmv_case(name, nbr, w, degree, gen, timed):
     jk2 = cuda_ms(spmv.jacobi_step, steps)
     jp2 = cuda_ms(spmv.jacobi_step_plain, steps)
     j_ms, jp_ms = (jk1 + jk2) / 2, (jp1 + jp2) / 2
+    # a serving segment: one launch, SEGMENT_WORK steps doing work, the rest
+    # skipped on the device; both buffers, its steps and done flag as the
+    # plain version's
+    seg_eps = R.converging_eps(f, step_args)
+    seg = R.segment_ms(spmv.jacobi_step, f, step_args, seg_eps)
+    want = (f.clone(), torch.empty_like(f), spmv.new_state(dev))
+    spmv.jacobi_step_plain(want[0], want[1], *step_args, want[2], seg_eps, R.SEGMENT_STEPS)
+    if [seg["steps"], seg["done"]] != want[2][[spmv.ITERS, spmv.DONE]].tolist() \
+            or seg["launches"] != 1:
+        raise AssertionError(f"{name}: segment {seg} against the plain version's "
+                             f"{want[2].tolist()}")
+    for got_buf, want_buf in zip(seg.pop("out")[:2], want[:2]):
+        torch.testing.assert_close(got_buf, want_buf, **SPMV_TOL)
+        worst = max(worst, float((got_buf - want_buf).abs().max()))
+    del want
     # library yardstick: cuSPARSE through torch.sparse.mm on a CSR copy
     # (columns sorted within each row), used nowhere in the port
     real = nbr >= 0
@@ -427,10 +416,13 @@ def check_spmv_case(name, nbr, w, degree, gen, timed):
     gbs = (n * K * 8 + 4 * slots + 4 * n) / (k_ms * 1e-3) / 1e9
     log(line + f" kernel_ms={k_ms!r} plain_ms={p_ms!r} torch.sparse.mm_csr_ms={lib_ms!r}"
         f" bound_ms={b_ms!r} ({b_by}) effective_GB/s={gbs!r} jacobi_kernel_ms={j_ms!r}"
-        f" jacobi_plain_ms={jp_ms!r} jacobi_bound_ms={jb_ms!r}")
+        f" jacobi_plain_ms={jp_ms!r} jacobi_bound_ms={jb_ms!r}"
+        f" segment_of_{R.SEGMENT_STEPS}: steps={seg['steps']} done={seg['done']}"
+        f" launches={seg['launches']} device_ms={seg['device_ms']!r}"
+        f" host_ms={seg['host_ms']!r}")
     return dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by, gbs=gbs, jacobi_ms=j_ms,
-                jacobi_plain_ms=jp_ms, jacobi_bound_ms=jb_ms)
+                jacobi_plain_ms=jp_ms, jacobi_bound_ms=jb_ms, segment=seg)
 
 
 def check_spmv(dev, gen):
@@ -443,7 +435,11 @@ def check_spmv(dev, gen):
     rec = check_spmv_case("main window-local", g.nbr, g.w, g.degree, gen, timed=True)
     del g
     torch.cuda.empty_cache()
-    rec["max_abs_err"] = max(rec["max_abs_err"], small["max_abs_err"])
+    uni = check_spmv_case("main uniform", *R.uniform_graph(N_VECTORS, GRAPH_K, dev, gen),
+                          gen, timed=True)
+    torch.cuda.empty_cache()
+    rec["max_abs_err"] = max(rec["max_abs_err"], small["max_abs_err"], uni["max_abs_err"])
+    rec["uniform"] = uni
     return rec
 
 
@@ -731,13 +727,15 @@ def knnprop_path(idx, dev, gen, card, rounds=8):
         segs = [-(-i // ranker.lp.dispatch_iters) for i in out["iters"]]
         if any(r > 1 + s for r, s in zip(out["host_reads"], segs)):
             raise AssertionError(f"{name}: host reads {out['host_reads']} for segments {segs}")
+        if out["launches"] != segs:  # one launch a segment
+            raise AssertionError(f"{name}: Jacobi launches {out['launches']} for segments {segs}")
         # round 0 ranks the text prior; the first fused round warms the
         # allocator: p50 over rounds 2..
         p50 = float(np.median(out["round_ms"][2:]))
         log(f"[{card}] {name} {idx.meta.n_vectors}x{GRAPH_K} graph, {idx.device_dtype} "
             f"index: rounds={rounds} p50_round_ms={p50!r} round_ms={out['round_ms']} "
             f"jacobi_iters_per_round={out['iters']} host_reads_per_round={out['host_reads']}"
-            f" jacobi_launches_per_round={out['launches']} "
+            f" jacobi_launches_per_round={out['launches']} segments_per_round={segs} "
             f"launches={spmv.jacobi_step.launches - before}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = {"knn_spmv": spmv.knn_spmv.launches, "jacobi_step": spmv.jacobi_step.launches}
@@ -768,6 +766,7 @@ def check_attention(dev, gen):
     import torch.nn.functional as F
 
     from seesaw_tpu_torch.ops import attention as A
+    from seesaw_tpu_torch.utils.profiling import cuda_ms, device_ms
 
     records = []
     for name, B, L, W, causal, dtype in ATTN_CASES:
@@ -881,6 +880,7 @@ def vision_throughput(dev, gen, params, attn):
 
     from seesaw_tpu_torch.models.clip import ClipEmbedding
     from seesaw_tpu_torch.ops import attention as A
+    from seesaw_tpu_torch.utils.profiling import cuda_ms
 
     px = torch.randn(VISION_BATCH, 224, 224, 3, device=dev, generator=gen)
     records = []
@@ -935,6 +935,7 @@ def check_attention_bwd(dev, gen):
     import torch.nn.functional as F
 
     from seesaw_tpu_torch.ops import attention as A
+    from seesaw_tpu_torch.utils.profiling import cuda_ms, device_ms
 
     records = []
     for name, B, L, W, causal in BWD_CASES:
@@ -1284,6 +1285,16 @@ def main() -> int:
         "library_ms": knn["library_ms"],
         "jacobi_step_ms": knn["jacobi_ms"], "jacobi_step_plain_ms": knn["jacobi_plain_ms"],
         "jacobi_step_bound_ms": knn["jacobi_bound_ms"],
+        "jacobi_step_uniform_ms": knn["uniform"]["jacobi_ms"],
+        "jacobi_step_uniform_plain_ms": knn["uniform"]["jacobi_plain_ms"],
+        "knn_spmv_uniform_ms": knn["uniform"]["ms"],
+        # a SEGMENT_STEPS-step segment converging at its SEGMENT_WORK-th step
+        "jacobi_segment_steps": knn["segment"]["steps"],
+        "jacobi_segment_launches": knn["segment"]["launches"],
+        "jacobi_segment_device_ms": knn["segment"]["device_ms"],
+        "jacobi_segment_host_ms": knn["segment"]["host_ms"],
+        "jacobi_segment_uniform_device_ms": knn["uniform"]["segment"]["device_ms"],
+        "jacobi_segment_uniform_host_ms": knn["uniform"]["segment"]["host_ms"],
     }, {
         "name": "pair_attention", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/pair_attention.cu",

@@ -7,11 +7,13 @@ Counterpart of `seesaw_tpu/ops/propagation.py`. One step is
 stopping when max (f_new - f_old)^2 < epsilon or after max_iter steps. On
 convergence the PRE-step iterate is returned, as the reference does (it
 breaks out before `old_fvalues = new_fvalues`); only a run that does not
-converge returns the last computed iterate. Each step is `ops.spmv.
+converge returns the last computed iterate. The steps run in `ops.spmv.
 jacobi_step`: the CUDA kernel on the card, its plain version on the CPU.
 
-Steps ping-pong between two buffers and keep their state on the device, so
-the host launches a segment of `dispatch_iters` steps and then reads
+Steps ping-pong between two buffers and keep their state on the device. A
+segment of `dispatch_iters` steps is one `jacobi_step` call, which on the
+card is one kernel launch that stops stepping once the run converges (the
+counterpart of the JAX segment's `lax.while_loop`); the host then reads
 (steps done, converged) once: `PropagationResult.host_reads` counts those
 reads. The fused KnnProp2 round (`propagate_rank`) reads nothing itself;
 its caller reads the iteration count and the flag together with the ranked
@@ -52,9 +54,9 @@ class _Run:
         self.epsilon = float(epsilon)
 
     def launch(self, first: int, steps: int):
-        """Steps first .. first+steps-1 (step k reads buffer k % 2). The
-        steps executed before are exactly those launched before, since a
-        step after convergence is a no-op."""
+        """Steps first .. first+steps-1 (step k reads buffer k % 2), one
+        `jacobi_step` call. The steps executed before are exactly those
+        asked for before, since a step after convergence is a no-op."""
         nbr, w = self.graph
         jacobi_step(self.bufs[first % 2], self.bufs[(first + 1) % 2], nbr, w,
                     self.denom, self.lam_prior, self.labels, self.is_labeled,

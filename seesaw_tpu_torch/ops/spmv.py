@@ -13,14 +13,16 @@ runs its plain PyTorch version beside it.
 
 The TPU's windowed layout (int16 lane slabs, window selection, RCM
 relabeling, routed overflow) exists to feed a lane shuffle in VMEM and is not
-carried over: on the card every edge is a slot of its row and the kernel
-gathers from L2.
+carried over: on the card every edge is a slot of its row, and the Jacobi
+kernel gathers from a window of f in shared memory where the graph has
+locality and from L2 elsewhere.
 
 A Jacobi run keeps its state in a small int32 device tensor (`new_state`):
-the max-delta scratch, the done flag, the number of executed steps and a
-block counter. A step launched after convergence changes nothing, so a
-caller launches a whole segment of steps (one `jacobi_step` call with
-`steps`) and reads (steps, done) once.
+the max-delta scratch, the done flag, the number of executed steps and the
+kernel's grid barrier. A whole segment of steps (one `jacobi_step` call
+with `steps`) is one kernel launch on the card, which decides after each
+step whether the run is done and skips the rest; the caller reads (steps,
+done) once a segment.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ def _library():
         lib = load_library("knn_spmv")
         P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         lib.seesaw_knn_spmv.argtypes = [P, P, P, P, L, I, P]
-        lib.seesaw_jacobi_step.argtypes = [P, P, P, P, P, P, P, P, P, F, L, I, P]
+        lib.seesaw_jacobi_step.argtypes = [P, P, P, P, P, P, P, P, P, F, L, I, I, P]
         lib.seesaw_knn_spmv.restype = lib.seesaw_jacobi_step.restype = I
         _lib = lib
     return _lib
@@ -155,25 +157,23 @@ def jacobi_step(f_in, f_out, nbr, w, denom, lam_prior, labels, is_labeled,
     All tensors (N,) f32 except nbr (N, Kp) int32, w (N, Kp) f32, is_labeled
     (N,) bool and state (`new_state`). The inputs are checked once for all
     the steps. CPU tensors take the plain version; CUDA tensors launch the
-    kernel once per step, or raise."""
+    kernel once for the whole segment, or raise."""
     if f_in.device.type == "cpu":
         return jacobi_step_plain(f_in, f_out, nbr, w, denom, lam_prior, labels,
                                  is_labeled, state, eps, steps)
     _check_step(f_in, f_out, nbr, w, denom, lam_prior, labels, is_labeled, state, steps)
-    dev = _check_device([f_in, f_out, nbr, w, denom, lam_prior, labels,
-                         is_labeled, state])
+    tensors = [f_in, f_out, nbr, w, denom, lam_prior, labels, is_labeled, state]
+    dev = _check_device(tensors)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("jacobi_step needs 16-byte aligned inputs (its bulk copies)")
     fn = _library().seesaw_jacobi_step
-    bufs = (f_in.data_ptr(), f_out.data_ptr())
-    rest = (nbr.data_ptr(), w.data_ptr(), denom.data_ptr(), lam_prior.data_ptr(),
-            labels.data_ptr(), is_labeled.data_ptr(), state.data_ptr(), float(eps),
-            nbr.shape[0], nbr.shape[1])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for k in range(steps):
-            err = fn(bufs[k % 2], bufs[(k + 1) % 2], *rest, stream)
-            if err != 0:
-                raise RuntimeError(f"jacobi_step kernel launch failed: CUDA error {err}")
-            jacobi_step.launches += 1
+        err = fn(*(t.data_ptr() for t in tensors), float(eps), nbr.shape[0], nbr.shape[1],
+                 int(steps), stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_step kernel launch failed: CUDA error {err}")
+    jacobi_step.launches += 1
 
 
 jacobi_step.launches = 0  # kernel launches in this process (CUDA only)

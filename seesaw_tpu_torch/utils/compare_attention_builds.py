@@ -10,7 +10,7 @@ whose report goes beside the library, `build/seesaw_tpu_torch/
 compare_<name>.ptxas.txt`), loaded with ctypes and
 run at every f32 case of `chip_smoke.py`'s ATTN_CASES (K5) and BWD_CASES
 (K6): its error against the plain version (f32 bar rtol 1e-5 / atol 1e-5),
-whether two runs give the same bits, its device time (`chip_smoke.device_ms`)
+whether two runs give the same bits, its device time (`profiling.device_ms`)
 and its CUDA-event time, the builds taken in turns (a, b, ..., b, a). One
 line a case on standard output. Needs a CUDA device; imports no JAX.
 """
@@ -25,7 +25,7 @@ import torch
 
 from .. import _build
 from ..ops import attention as A
-from .profiling import card_line
+from .profiling import card_line, cuda_ms, device_ms
 
 ROOT = Path(__file__).resolve().parents[2]
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -109,9 +109,9 @@ def main(paths) -> int:
                 err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
                 ok=all(torch.allclose(a, b, rtol=1e-5, atol=1e-5) for a, b in zip(got, want)),
                 same=all(torch.equal(a, b) for a, b in zip(got, again)),
-                dev=CS.device_ms(fn, sets), ev=[])
+                dev=device_ms(fn, sets), ev=[])
         for n in [*libs, *reversed(libs)]:
-            res[n]["ev"].append(CS.cuda_ms(entry(libs[n], kind, causal), sets * 4))
+            res[n]["ev"].append(cuda_ms(entry(libs[n], kind, causal), sets * 4))
         print(f"{kind} {name} B={B} L={L} W={W} causal={causal}: " + "; ".join(
             f"{n} device_ms={r['dev']!r} events_ms={sum(r['ev']) / len(r['ev'])!r} "
             f"max_abs_err={r['err']!r} within_bar={r['ok']} bit_identical_rerun={r['same']}"

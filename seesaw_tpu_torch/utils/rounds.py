@@ -23,8 +23,14 @@ CLIP fine-tuning (`drive_finetune`): `CLIPFineTuner` steps on a batch of
 seeded pixels and token rows made on the device, with host-clock times and
 the attention kernels' launches per step.
 
-`chip_smoke.py` and `utils/profile_round.py` drive these on the card; the
-tests drive them on the CPU at a small size.
+A Jacobi segment as the serving path launches it (`segment_ms`): one call
+of SEGMENT_STEPS steps from fresh buffers, at an eps at which the run stops
+at its SEGMENT_WORK-th step (`converging_eps`), on the window-local graph
+or on one without locality (`uniform_graph`).
+
+`chip_smoke.py` and `utils/profile_round.py` drive these on the card, and
+`utils/compare_spmv_builds.py` the Jacobi segment; the tests drive them on
+the CPU at a small size.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ from ..ops import attention, fused_scoring, spmv
 from ..ops.propagation import DeferredPropagation
 from ..runtime.bitmap import BitMap
 from ..session import Session
-from .profiling import annotate
+from .profiling import annotate, profiled_ms
 
 TILES = 8
 _IMG = 224.0
@@ -191,6 +197,58 @@ def window_local_graph(n: int, K: int, device, generator: torch.Generator,
     del far
     w = torch.rand(n, K, device=dev, generator=generator) * 0.9 + 0.1
     return SymmetricWeights(nbr=nbr, w=w, degree=w.sum(dim=1))
+
+
+def uniform_graph(n: int, K: int, device, generator: torch.Generator):
+    """(nbr, w, degree) of an (n, K) graph without locality: neighbours
+    uniform over all rows, weights uniform in [0.1, 1.0)."""
+    nbr = torch.randint(0, n, (n, K), dtype=torch.int32, device=device, generator=generator)
+    w = torch.rand(n, K, device=device, generator=generator) * 0.9 + 0.1
+    return nbr, w, w.sum(dim=1)
+
+
+# the serving path's segment (`label_propagation` dispatch_iters), timed
+# with an eps at which the run converges at its SEGMENT_WORK-th step
+SEGMENT_STEPS, SEGMENT_WORK = 100, 3
+
+
+def converging_eps(f: torch.Tensor, step_args, work: int = SEGMENT_WORK) -> float:
+    """An eps at which a run from f stops at its `work`-th step: the
+    geometric mean of the plain steps' max squares `work` - 1 and `work`."""
+    bufs, deltas = (f.clone(), torch.empty_like(f)), []
+    for k in range(work):
+        spmv.jacobi_step_plain(bufs[k % 2], bufs[(k + 1) % 2], *step_args,
+                               spmv.new_state(f.device), 0.0)
+        deltas.append(float(((bufs[(k + 1) % 2] - bufs[k % 2]) ** 2).max()))
+    return (deltas[-2] * deltas[-1]) ** 0.5
+
+
+def segment_ms(step, f: torch.Tensor, step_args, eps: float, reps: int = 5) -> dict:
+    """A SEGMENT_STEPS-step segment from f through `step` (a Jacobi entry
+    with `jacobi_step`'s signature and a `launches` count), fresh buffers
+    and state each time: host ms (clock around the call and a synchronize)
+    and device ms (`profiled_ms`), means over `reps` runs after a first
+    run; that first run's buffers and state (`out`), steps, done flag and
+    launches."""
+    def fresh():
+        return f.clone(), torch.empty_like(f), spmv.new_state(f.device)
+
+    sets = [fresh() for _ in range(2 * reps + 1)]
+    before = step.launches
+    step(*sets[0][:2], *step_args, sets[0][2], eps, SEGMENT_STEPS)
+    sync(f.device)
+    launches = step.launches - before
+    host = []
+    for fa, fb, st in sets[1:reps + 1]:
+        t0 = time.perf_counter()
+        step(fa, fb, *step_args, st, eps, SEGMENT_STEPS)
+        sync(f.device)
+        host.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = profiled_ms(lambda: [step(fa, fb, *step_args, st, eps, SEGMENT_STEPS)
+                                  for fa, fb, st in sets[reps + 1:]], reps)
+    steps, done = sets[0][2][[spmv.ITERS, spmv.DONE]].tolist()
+    return dict(device_ms=dev_ms, host_ms=sum(host) / reps, steps=steps, done=done,
+                launches=launches, out=sets[0])
 
 
 def drive_knnprop_rounds(idx: MultiscaleIndex, ranker: LabelPropagationRanker2,

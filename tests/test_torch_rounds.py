@@ -66,6 +66,34 @@ def test_window_local_graph():
     torch.testing.assert_close(g.degree, g.w.sum(dim=1))
 
 
+@pytest.mark.parametrize("graph", ["window-local", "uniform"])
+def test_converging_eps_stops_segment_at_its_work_step(graph):
+    """The timed segment's eps (chip_smoke phase 3, compare_spmv_builds): a
+    SEGMENT_STEPS-step run from f stops at step SEGMENT_WORK, on either
+    graph; the uniform graph has no locality."""
+    from seesaw_tpu_torch.ops import spmv
+
+    gen = torch.Generator().manual_seed(2)
+    n = 4096
+    if graph == "uniform":
+        nbr, w, degree = R.uniform_graph(n, 32, "cpu", gen)
+        rows = torch.arange(n)[:, None]
+        assert ((nbr - rows).abs() > 400).float().mean().item() > 0.7
+        assert 0.1 <= float(w.min()) and float(w.max()) < 1.0
+        torch.testing.assert_close(degree, w.sum(dim=1))
+    else:
+        g = R.window_local_graph(n, 32, "cpu", gen)
+        nbr, w, degree = g.nbr, g.w, g.degree
+    f = torch.rand(n, generator=gen)
+    step_args = (nbr, w, degree + 1.0, torch.rand(n, generator=gen),
+                 (torch.rand(n, generator=gen) < 0.3).float(), torch.rand(n, generator=gen) < 0.01)
+    eps = R.converging_eps(f, step_args)
+    state = spmv.new_state("cpu")
+    spmv.jacobi_step_plain(f.clone(), torch.empty_like(f), *step_args, state, eps,
+                           R.SEGMENT_STEPS)
+    assert state[[spmv.ITERS, spmv.DONE]].tolist() == [R.SEGMENT_WORK, 1]
+
+
 @pytest.mark.parametrize("warm_start", [False, True])
 def test_knnprop_rounds(warm_start):
     """rank -> labels -> update at 4096 x 32: every round after the first

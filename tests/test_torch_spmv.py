@@ -4,11 +4,12 @@ against `windowed_spmv` (the Pallas kernels K2-K4, in interpret mode) with a
 scalar-overflow layout and with a routed-overflow layout, and one Jacobi
 step against the step of `_propagate_segment`. The CUDA kernel is compared
 with the plain version by the `cuda`-marked tests (skipped without a GPU)
-and by chip_smoke.py.
+and by chip_smoke.py: one launch a segment, whatever its length, equal to
+the plain version's steps, with the same bits on a rerun.
 
 Tolerances: SpMV rtol 2e-5 / atol 2e-6, the JAX package's own bar between
 its windowed and dense SpMV (f32 sums in another order); the Jacobi step
-the same on the scores, and the done flag equal.
+the same on the scores, and the done flag and step count equal.
 """
 import numpy as np
 import pytest
@@ -192,3 +193,136 @@ def test_cuda_kernels_match_plain(K):
         assert states[0].tolist() == states[1].tolist()
         if done0:
             assert (outs[0] == 7.0).all()
+
+
+def _jax_segment(d, eps, f, f_prev, i0, stop_at):
+    out = _propagate_segment(
+        jnp.asarray(d["nbr"]), jnp.asarray(d["w"]), jnp.asarray(d["degree"]),
+        jnp.asarray(d["prior"]), jnp.asarray(d["labels"]), jnp.asarray(d["is_labeled"]),
+        jnp.asarray(f), jnp.asarray(f_prev), jnp.asarray(i0), jnp.asarray(False),
+        jnp.asarray(stop_at), reg_lambda=d["lam"], max_iter=300, epsilon=eps,
+    )
+    f, f_prev, i, done, sel = out
+    return np.asarray(f), np.asarray(f_prev), int(i), bool(done), np.asarray(sel)
+
+
+@pytest.mark.parametrize("converges", ["inside", "outside"])
+@pytest.mark.parametrize("steps", [1, 2, 3, 7])
+def test_jacobi_segment_matches_jax_segment(steps, converges):
+    """`jacobi_step_plain(steps=s)` against JAX's `_propagate_segment` with
+    `stop_at` s steps on, from the same carried state (the iterate after 3
+    steps): the iterate, the step count, done, the pre-step iterate and the
+    buffer that holds the result. This is the contract the one-launch
+    kernel keeps."""
+    d = _step_inputs(8)
+    i0 = 3
+    f3, f2, _, _, _ = _jax_segment(d, 0.0, d["f"], d["f"] + 1.0, 0, i0)
+    deltas, f = [], f3
+    for k in range(steps):  # the segment's max squares, step by step
+        f_next, *_ = _jax_segment(d, 0.0, f, f, 0, 1)
+        deltas.append(float(((f_next - f) ** 2).max()))
+        f = f_next
+    if converges == "inside":  # done at the segment's 2nd step (1st when s = 1)
+        c = min(2, steps)
+        assert c == 1 or deltas[1] < deltas[0]
+        eps = 2 * deltas[0] if c == 1 else (deltas[0] * deltas[1]) ** 0.5
+    else:
+        eps = 0.5 * min(deltas)
+    want_f, want_prev, want_i, want_done, want_sel = _jax_segment(d, eps, f3, f2, i0, i0 + steps)
+    assert want_done == (converges == "inside")
+
+    denom = d["degree"] + np.float32(d["lam"])
+    denom = np.where(denom > 0, denom, np.float32(1.0)).astype(np.float32)
+    bufs = (_t(f3).clone(), torch.full((f3.shape[0],), 7.0))
+    state = spmv.new_state("cpu")
+    state[spmv.ITERS] = i0
+    spmv.jacobi_step(bufs[0], bufs[1], _t(d["nbr"]), _t(d["w"]), _t(denom),
+                     np.float32(d["lam"]) * _t(d["prior"]), _t(d["labels"]),
+                     _t(d["is_labeled"]), state, eps, steps)
+    i, done = int(state[spmv.ITERS]), bool(state[spmv.DONE])
+    assert (i, done) == (want_i, want_done)
+    ran = i - i0
+    np.testing.assert_allclose(bufs[ran % 2].numpy(), want_f, **TOL)
+    np.testing.assert_allclose(bufs[(ran + 1) % 2].numpy(), want_prev, **TOL)
+    np.testing.assert_allclose(bufs[(ran + int(done)) % 2].numpy(), want_sel, **TOL)
+
+
+# (N, Kp, graph, steps, eps, kind): kind "nan" puts a NaN in an unlabeled
+# row's prior, "done" starts from a finished run
+SEGMENT_CASES = [
+    (3001, 6, "local", 1, 1e-5, "run"),
+    (3001, 6, "local", 2, 1e-5, "run"),
+    (3001, 6, "local", 3, 1e-5, "run"),
+    (3001, 6, "local", 100, 1e-5, "run"),  # converges inside the segment
+    (3001, 6, "local", 3, 0.0, "run"),  # never done: odd and even step counts
+    (3001, 6, "local", 4, 0.0, "run"),
+    (3001, 6, "local", 5, 1e-5, "nan"),
+    (3001, 6, "local", 3, 1e-5, "done"),
+    (3001, 1, "local", 5, 1e-5, "run"),
+    (3001, 13, "local", 5, 1e-5, "run"),
+    (3001, 32, "local", 5, 1e-5, "run"),
+    (3001, 40, "local", 5, 1e-5, "run"),
+    (3001, 200, "local", 5, 1e-5, "run"),  # too wide for a stage: read directly
+    (12, 6, "local", 100, 1e-5, "run"),  # below one tile
+    (3001, 6, "uniform", 100, 1e-5, "run"),
+    (3001, 32, "uniform", 100, 1e-5, "run"),
+    (200_003, 32, "local", 100, 1e-5, "run"),  # many tiles a block, a ragged last
+    (200_003, 32, "uniform", 3, 0.0, "run"),
+]
+
+
+def _segment_inputs(n, K, graph, kind, seed=9):
+    rng = np.random.default_rng(seed)
+    if graph == "uniform":
+        nbr, w = _graph(n, K, seed, local_frac=0.0)
+    else:  # the main path's window-local graph: 97% within +-400 rows
+        nbr, w = _graph(n, K, seed, local_frac=0.97, spread=400)
+    degree = w.sum(axis=1).astype(np.float32)
+    prior = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    labels = (rng.random(n) < 0.5).astype(np.float32)
+    is_labeled = rng.random(n) < 0.05
+    if kind == "nan":
+        prior[5] = np.nan
+        is_labeled[5] = False
+    f = np.where(is_labeled, labels, rng.uniform(0, 1, n)).astype(np.float32)
+    denom = degree + np.float32(1.0)
+    return f, (nbr, w, denom, prior, labels, is_labeled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,graph,steps,eps,kind", SEGMENT_CASES)
+def test_cuda_jacobi_segment_is_one_launch(n, K, graph, steps, eps, kind):
+    """A segment of `steps` Jacobi steps on the card: one kernel launch per
+    call, both buffers and (done, steps) equal to the plain version's, and
+    the same bits when run again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    f, graph_args = _segment_inputs(n, K, graph, kind)
+    args = [_t(a).to(dev) for a in graph_args]
+
+    def run(step):
+        bufs = (_t(f).to(dev), torch.full((n,), 7.0, device=dev))
+        state = spmv.new_state(dev)
+        if kind == "done":
+            state[spmv.DONE], state[spmv.ITERS] = 1, 4
+        before = spmv.jacobi_step.launches
+        step(*bufs, *args, state, eps, steps)
+        torch.cuda.synchronize()
+        if step is spmv.jacobi_step:
+            assert spmv.jacobi_step.launches == before + 1
+        return bufs, state
+
+    (a0, a1), sa = run(spmv.jacobi_step)
+    (b0, b1), sb = run(spmv.jacobi_step)
+    (p0, p1), sp = run(spmv.jacobi_step_plain)
+    assert sa[[spmv.DONE, spmv.ITERS]].tolist() == sp[[spmv.DONE, spmv.ITERS]].tolist()
+    for got, again, want in ((a0, b0, p0), (a1, b1, p1)):
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+    if kind == "done":
+        assert sa.tolist() == sp.tolist() and (a1 == 7.0).all()
+    if kind == "nan":
+        assert not bool(sa[spmv.DONE]) and int(sa[spmv.ITERS]) == steps
+    if eps == 0.0:
+        assert int(sa[spmv.ITERS]) == steps
