@@ -27,7 +27,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       `torch.sparse.mm` on a CSR tensor of the same graph.
 4. port sessions on the card against the same sessions on the CPU, on a
    small synthetic root: plain, rocchio_update and log_reg2, then knn_prop2
-   over a k=5 graph saved beside the index; same dbidxs every round, and the
+   over the k=8 graph saved beside the index (restricted to k=5); same
+   dbidxs every round, and the
    kernels launched every round (knn_prop2: every feedback round). The
    root's info.json names `clip-custom:<dir>`, a small CLIP artifact (64-wide
    heads, embed_dim = the index's dim, seeded weights): each session loads
@@ -86,6 +87,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       the default `text/projection` config, which must launch no K6;
    d. `textual` sessions (linear and finetune modes) on a root like phase
       4's, on the card against the CPU: same dbidxs every round.
+9. the remaining feedback methods (`multi_reg`, `multi_reg_neg`,
+   `pseudo_lr`, `active_search`, `lknn`); run after phase 6, before the
+   towers' phases (whose peak memory it would move):
+   a. sessions of each on a root like phase 4's (multi_reg with each of its
+      three label losses; multi_reg_neg with rejected boxes described as a
+      confusion class; the active-search loops one image a round), on the
+      card against the CPU: same dbidxs every round, scores within 2e-3
+      for the fitted loops (their LBFGS solves may end apart on the f32
+      floor or at a hinge kink, `seesaw_tpu_torch/utils/solves.py`); the
+      scan kernel launched in every multi_reg round, the Jacobi kernel in
+      every pseudo_lr refine;
+   b. multi_reg at full size: a 10M x 512 bf16 index made as in phase 5,
+      its XLX from a 10M x 32 window-local graph summed on the card in row
+      chunks from the index's rows (first held against numpy's XLX on a
+      200k-row graph), ce_loss and pairwise_rank_loss sessions of 10 rounds:
+      p50 `next` and round, LBFGS host syncs a fit, XLX seconds, peak
+      memory, the scan kernel in every round; a first feedback fit against
+      the CPU port's fit of the same rows (rtol 2e-4 / atol 2e-5, or solves
+      held step by step up to a departure on the floor or at a kink);
+   c. one multi-reg fit at the JAX package's refine shape (512 x 512,
+      pairwise_rank_loss, XLX = 1e-3 I, max_iter 50): ms a fit on the host
+      clock, host syncs, against the CPU port as in b;
+   d. `ens_expected_value` at 1M x 32, K=10, block 4096: CUDA-event ms,
+      values against the CPU port (rtol 1e-6 / atol 1e-6) and the same pick.
 
 The line before the last is the kernel record (JSON); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -93,11 +118,13 @@ package beside this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import shutil
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -508,7 +535,8 @@ def write_synthetic_root(root: Path, n_images=80, d=32, seed=0):
         "constructor": "seesaw_tpu.indices.multiscale.MultiscaleIndex",
         "model": model, "excluded": [],
     }))
-    save_knn_graph(np.stack(vecs), path / "knn_graph", k=5)
+    # k=8: multi_reg's degree (phase 9a); the other graph loops restrict it
+    save_knn_graph(np.stack(vecs), path / "knn_graph", k=8)
     return gdm, gt, model
 
 
@@ -536,42 +564,60 @@ SESSION_OPTIONS = {
 }
 
 
-def small_session_rounds(gdm, gt, method, device, rounds=6):
-    """Returns the dbidxs of each round, all activation scores, for each
-    round whether its ranking ran a staged propagation (knn_prop2) and how
-    many Jacobi kernel launches it made, the session's text vector, its
-    embedding, and the attention kernel's launches in its text query."""
+CONFUSION = "a cat"  # phase 9a's description of a rejected box
+
+
+def small_session_rounds(gdm, gt, method, device, rounds=6, *, options=None, batch=BATCH,
+                         confusion=False):
+    """One session on the small root. Returns a namespace: the dbidxs of
+    each round, all activation scores, for each round whether its ranking
+    ran a staged propagation (knn_prop2), the scan kernel's launches in its
+    `next`, the Jacobi kernel's launches in its `next` and in its `refine`,
+    the session's text vector, its embedding, and the attention kernel's
+    launches in its text query. The simulated user accepts each ground-truth
+    box; with `confusion` it rejects every other image by a box described
+    CONFUSION."""
     from seesaw_tpu_torch import Box, IndexSpec, SessionParams, make_session
     from seesaw_tpu_torch.ops import attention, spmv
+    from seesaw_tpu_torch.ops import fused_scoring as fs
     from seesaw_tpu_torch.ops.propagation import DeferredPropagation
 
-    opts = SESSION_OPTIONS[method]
     p = SessionParams(index_spec=IndexSpec(d_name="smoke", i_name="multiscale"),
-                      interactive=method, batch_size=BATCH, shortlist_size=20,
-                      interactive_options=opts, index_options={"use_pallas": True})
+                      interactive=method, batch_size=batch, shortlist_size=20,
+                      interactive_options=options or SESSION_OPTIONS[method],
+                      index_options={"use_pallas": True})
     s = make_session(gdm, p, device=device)["session"]
     attn_before = attention.pair_attention.launches
     s.set_text("a dog")
-    text_launches = attention.pair_attention.launches - attn_before
-    out, graph_rounds = [], []
+    out = SimpleNamespace(dbidxs=[], staged=[], scan=[], next_jacobi=[], refine_jacobi=[],
+                          text_launches=attention.pair_attention.launches - attn_before)
     for _ in range(rounds):
         model = s.loop.state.knn_model
-        staged = model is not None and isinstance(model.current_scores_any(),
-                                                  DeferredPropagation)
-        before = spmv.jacobi_step.launches
-        out.append([int(i) for i in s.next()])
-        graph_rounds.append((staged, spmv.jacobi_step.launches - before))
+        out.staged.append(model is not None
+                          and isinstance(model.current_scores_any(), DeferredPropagation))
+        jac, scan = spmv.jacobi_step.launches, fs.fused_frame_max.launches
+        out.dbidxs.append([int(i) for i in s.next()])
+        out.scan.append(fs.fused_frame_max.launches - scan)
+        out.next_jacobi.append(spmv.jacobi_step.launches - jac)
         state = s.get_state()
         for im in state.gdata[-1]:
             b = gt.get(im.dbidx)
-            im.boxes = ([Box(x1=b[0], y1=b[1], x2=b[2], y2=b[3], marked_accepted=True)]
-                        if b is not None else [])
+            if b is not None:
+                im.boxes = [Box(x1=b[0], y1=b[1], x2=b[2], y2=b[3], marked_accepted=True)]
+            elif confusion:
+                im.boxes = [Box(x1=0.0, y1=0.0, x2=112.0, y2=112.0, description=CONFUSION,
+                                marked_accepted=False)]
+            else:
+                im.boxes = []
         s.update_state(state)
+        jac = spmv.jacobi_step.launches
         s.refine()
-    scores = [a["score"] for acts in s.acc_activations for a in acts]
+        out.refine_jacobi.append(spmv.jacobi_step.launches - jac)
+    out.scores = np.array([a["score"] for acts in s.acc_activations for a in (acts or [])],
+                          np.float32)
     # the string cache returns round 0's vector without a launch
-    return (out, np.array(scores, np.float32), graph_rounds, s.index.string2vec("a dog"),
-            s.index.embedding, text_launches)
+    out.tvec, out.embedding = s.index.string2vec("a dog"), s.index.embedding
+    return out
 
 
 def check_sessions_cuda_vs_cpu():
@@ -591,8 +637,9 @@ def check_sessions_cuda_vs_cpu():
         raise AssertionError("the registry keeps two models for 'cuda' and 'cuda:0'")
     for i, method in enumerate(("plain", "rocchio_update", "log_reg2", "knn_prop2")):
         before = fs.fused_frame_max.launches
-        on_gpu, s_gpu, graph, tvec_gpu, emb_gpu, text_launches = small_session_rounds(
-            gdm, gt, method, torch.device("cuda"))
+        gpu = small_session_rounds(gdm, gt, method, torch.device("cuda"))
+        on_gpu, s_gpu, tvec_gpu, emb_gpu = gpu.dbidxs, gpu.scores, gpu.tvec, gpu.embedding
+        graph, text_launches = list(zip(gpu.staged, gpu.next_jacobi)), gpu.text_launches
         torch.cuda.synchronize()
         if emb_gpu is not on_card or not isinstance(emb_gpu, ClipEmbedding):
             raise AssertionError(f"{method}: the CUDA index did not load {model} on the card")
@@ -608,8 +655,8 @@ def check_sessions_cuda_vs_cpu():
                 raise AssertionError(f"knn_prop2: Jacobi launches per feedback round {graph}")
         elif fs.fused_frame_max.launches - before < len(on_gpu):
             raise AssertionError(f"{method}: the CUDA session did not launch the kernel")
-        on_cpu, s_cpu, _, tvec_cpu, emb_cpu, _ = small_session_rounds(
-            gdm, gt, method, torch.device("cpu"))
+        cpu = small_session_rounds(gdm, gt, method, torch.device("cpu"))
+        on_cpu, s_cpu, tvec_cpu, emb_cpu = cpu.dbidxs, cpu.scores, cpu.tvec, cpu.embedding
         if emb_cpu.device.type != "cpu":
             raise AssertionError(f"{method}: the CPU index took a model on {emb_cpu.device}")
         # unit text vector through 2 f32 layers, TF32 off
@@ -1187,6 +1234,317 @@ def check_textual_cuda_vs_cpu():
         shutil.rmtree(d, ignore_errors=True)
 
 
+# -- phase 9 -----------------------------------------------------------------
+_GRAPH5 = dict(knn_path="", knn_k=5, edist=0.5)
+_MULTI_REG = dict(matrix_options=dict(_GRAPH5, knn_k=8), rank_loss_margin=0.0,
+                  pos_weight="balanced", reg_data_lambda=0.1, reg_norm_lambda=10.0,
+                  reg_query_lambda=1.0, max_iter=100)
+MULTIREG_LOSSES = ("ce_loss", "pairwise_rank_loss", "pairwise_logistic_loss")
+# (name, method, options, batch, confusion): seesaw_tpu/configs.py's defaults
+# over the small root's graph (edist and the ranker's calibration as phase
+# 4's knn_prop2, which suit the root's scores)
+FEEDBACK_SESSIONS = tuple(
+    (f"multi_reg {loss}", "multi_reg", dict(_MULTI_REG, label_loss_type=loss), BATCH, False)
+    for loss in MULTIREG_LOSSES
+) + (
+    ("multi_reg_neg", "multi_reg_neg", dict(reg_norm_lambda=10.0, reg_query_lambda=1.0,
+                                            max_iter=100, discount_neg=True), BATCH, True),
+    ("pseudo_lr", "pseudo_lr", dict(
+        label_prop_params=SESSION_OPTIONS["knn_prop2"],
+        log_reg_params=dict(reg_lambda=10.0, max_iter=100), switch_over=True,
+        real_sample_weight=5.0, sample_size=100), BATCH, False),
+    ("active_search", "active_search", dict(
+        matrix_options=_GRAPH5, gamma=dict(mode="fixed", value=0.1), reward_horizon=10,
+        adjust_horizon=False, max_steps=100, pruning_on=False,
+        implementation="vectorized"), 1, False),
+    ("lknn", "lknn", dict(matrix_options=_GRAPH5, gamma=0.1, use_clip_as_gamma=False), 1, False),
+)
+# a fitted loop's coefficient comes from an LBFGS solve that may take its
+# last steps differently on the card, on the f32 floor or at a hinge kink
+# (`utils/solves.py`), moving a unit coefficient and so a score by up to
+# ~1e-3 (tests/test_torch_session.py's bar against the JAX package)
+FIT_SCORE_TOL = dict(rtol=0, atol=2e-3)
+FIT_TOL = dict(rtol=2e-4, atol=2e-5)  # the LogReg2 bar, for fitted coefficients
+XLX_CHECK_ROWS = 200_000
+FIT_ROWS = 512  # bench.py bench_refine: 512 labeled rows x 512, max_iter 50
+ENS_N, ENS_D, ENS_K, ENS_BLOCK = 1_000_000, 32, 10, 4096  # bench.py bench_ens
+
+
+def check_feedback_sessions_cuda_vs_cpu():
+    """Phase 9a: the feedback loops of this slice on a root like phase 4's,
+    on the card and on the CPU: same dbidxs every round, scores within
+    FIT_SCORE_TOL (fitted loops) or 1e-5; the scan kernel launched in every
+    multi_reg round, the Jacobi kernel in every pseudo_lr refine. Returns
+    this phase's launches of both kernels."""
+    import torch
+
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops import spmv
+
+    root = ROOT / "build" / "seesaw_tpu_torch" / "feedback_root"
+    artifact = root.with_name(root.name + "_clip")
+    for d in (root, artifact):
+        shutil.rmtree(d, ignore_errors=True)
+    gdm, gt, _ = write_synthetic_root(root)
+    fs.fused_frame_max.launches = spmv.jacobi_step.launches = 0
+    for name, method, opts, batch, confusion in FEEDBACK_SESSIONS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            np.random.seed(0)  # pseudo_lr draws its sample from numpy's global state
+            runs[device] = small_session_rounds(
+                gdm, gt, method, torch.device(device), rounds=6 if batch > 1 else 12,
+                options=opts, batch=batch, confusion=confusion)
+        torch.cuda.synchronize()
+        g, c = runs["cuda"], runs["cpu"]
+        if g.dbidxs != c.dbidxs:
+            raise AssertionError(f"{name}: cuda {g.dbidxs} != cpu {c.dbidxs}")
+        fitted = method in ("multi_reg", "multi_reg_neg", "pseudo_lr")
+        np.testing.assert_allclose(g.scores, c.scores,
+                                   **(FIT_SCORE_TOL if fitted else dict(rtol=1e-5, atol=1e-5)))
+        if method == "multi_reg" and min(g.scan) < 1:
+            raise AssertionError(f"{name}: scan launches per round {g.scan}")
+        if method == "pseudo_lr" and min(g.refine_jacobi) < 1:
+            raise AssertionError(f"{name}: Jacobi launches per refine {g.refine_jacobi}")
+        err = float(np.abs(g.scores - c.scores).max(initial=0.0))
+        log(f"session {name}: cuda == cpu dbidxs over {len(g.dbidxs)} rounds; max activation "
+            f"score diff {err!r}; scan launches per round {g.scan}; Jacobi launches per "
+            f"round in next {g.next_jacobi} and in refine {g.refine_jacobi}")
+    launches = {"fused_frame_max": fs.fused_frame_max.launches,
+                "jacobi_step": spmv.jacobi_step.launches}
+    for d in (root, artifact):
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def solve_trace(model, X, y, sw):
+    """`utils.solves.first_departure`'s view of a RegFit's solve on X's
+    device: (solve after k iterations, objective at a point)."""
+    import torch
+
+    fun = model.objective(X, y, sw)
+
+    def solve(k):
+        m = copy.copy(model)
+        m.max_iter = k
+        res = m.solve(X, y, sw)[1]
+        return res.x.cpu().numpy(), float(res.f), res.n_iter
+
+    def value(x):
+        return float(fun(torch.from_numpy(x).to(X.device)))
+
+    return solve, value
+
+
+def check_fit_cuda_vs_cpu(name, model, X, y, sw, coeff_gpu):
+    """The RegFit's coefficient on the card against the CPU port's fit of
+    the same rows at FIT_TOL; where they part, both solves are traced step
+    by step (`utils/solves.py`) and must depart only on the f32 floor, at a
+    kink or at a stalled search. Returns (max abs diff, departure)."""
+    from seesaw_tpu_torch.utils.solves import at_kink, first_departure
+
+    cpu_args = [t.cpu() for t in (X, y, sw)]
+    coeff_cpu, _ = model.solve(*cpu_args)
+    coeff_cpu = coeff_cpu.numpy()
+    err = float(np.abs(coeff_gpu - coeff_cpu).max())
+    if np.allclose(coeff_gpu, coeff_cpu, **FIT_TOL):
+        return err, None
+    Xc = (cpu_args[0] - cpu_args[0].mean(dim=0)).numpy()
+    yn = cpu_args[1].numpy()
+    solve_a, value_a = solve_trace(model, *cpu_args)
+    solve_b, value_b = solve_trace(model, X, y, sw)
+    kind, step = first_departure(
+        solve_a, solve_b, value_a, value_b, x0=model.qvec_hat, max_iter=model.max_iter,
+        scale=model.reg_norm_lambda + model.reg_query_lambda,
+        kink=(lambda x: at_kink(Xc @ x, yn))
+        if model.label_loss_type == "pairwise_rank_loss" else None,
+        **FIT_TOL)
+    if kind is None:
+        raise AssertionError(f"{name}: the traced solves agree, the fits do not ({err!r})")
+    return err, f"{kind} at step {step}"
+
+
+def check_device_xlx(dev, gen):
+    """Phase 9b: the XLX matrix summed in row chunks on the card against the
+    numpy XLX of the same rows, over a 200k-row window-local graph of a
+    bf16 matrix. Tolerance rtol 1e-5 / atol 1e-5 x max|XLX| (f32 sums of 6.4M
+    products in another order)."""
+    import torch
+
+    from seesaw_tpu_torch.knn_graph import SymmetricWeights
+    from seesaw_tpu_torch.utils import rounds as R
+
+    g = R.window_local_graph(XLX_CHECK_ROWS, R.MULTIREG_GRAPH_K, dev, gen)
+    V = torch.randn(XLX_CHECK_ROWS, DIM, device=dev, generator=gen, dtype=torch.bfloat16)
+    got = g.xlx(lambda r: V[r].float(), device=dev).cpu().numpy()
+    t0 = time.perf_counter()
+    want = SymmetricWeights(*(t.cpu().numpy() for t in (g.nbr, g.w, g.degree))).xlx(
+        V.float().cpu().numpy())
+    host_s = time.perf_counter() - t0
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+    err = float(np.abs(got - want).max())
+    log(f"xlx {XLX_CHECK_ROWS}x{R.MULTIREG_GRAPH_K} graph, bf16 rows: device chunks == numpy, "
+        f"max_abs_err={err!r} (max|XLX|={scale!r}); numpy took {host_s!r} s")
+    del g, V
+    torch.cuda.empty_cache()
+    return err
+
+
+def first_multireg_fit(idx, params):
+    """A session's first feedback round at full size: the text query, one
+    batch labeled (its first image accepted), refine, then the query that
+    runs the deferred fit. Returns (the DeferredMultiReg, the fitted
+    coefficient, the labeled rows' f32 vectors on the card)."""
+    import torch
+
+    from seesaw_tpu_torch import Box
+    from seesaw_tpu_torch.session import Session
+
+    dataset = SimpleNamespace(get_urls=lambda b: [f"b://{int(i)}" for i in b])
+    s = Session(None, dataset, idx, params)
+    s.set_text("a photo for the multi_reg fit check")
+    s.next()
+    state = s.get_state()
+    for j, im in enumerate(state.gdata[-1]):
+        im.boxes = ([Box(x1=0.0, y1=0.0, x2=112.0, y2=112.0, marked_accepted=True)]
+                    if j == 0 else [])
+    s.update_state(state)
+    s.refine()
+    dv = s.loop.curr_vec
+    s.next()
+    X = idx._device_rows_f32(torch.from_numpy(dv.prows).to(idx.device))
+    return dv, np.asarray(s.loop.curr_vec, np.float32), X
+
+
+def multireg_path(dev, gen, card, clip, rounds=10):
+    """Phase 9b: multi_reg sessions on a 10M x 512 bf16 index built as in
+    phase 5, regularized by a 10M x 32 window-local graph whose XLX the
+    card sums in row chunks from the index's rows. Returns a record with
+    the scan kernel's launches in the sessions."""
+    import torch
+
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.utils import rounds as R
+
+    xlx_err = check_device_xlx(dev, gen)
+    idx = R.device_index(N_VECTORS, DIM, "bfloat16", device=dev, generator=gen, embedding=clip,
+                         path=str(ROOT / "build" / "seesaw_tpu_torch" / "multireg_index"))
+    weights = R.window_local_graph(N_VECTORS, R.MULTIREG_GRAPH_K, dev, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opts = R.LOOP_OPTIONS["multi_reg"]["matrix_options"]
+    xlx, xlx_s = R.multireg_xlx(idx, weights, opts)
+    if not bool(torch.isfinite(xlx).all()):
+        raise AssertionError("the 10M XLX matrix is not finite")
+    log(f"[{card}] xlx {N_VECTORS}x{R.MULTIREG_GRAPH_K} graph, bf16 index rows on the card: "
+        f"{xlx_s!r} s")
+    dv, coeff, X = first_multireg_fit(
+        idx, R.session_params("multi_reg", batch_size=BATCH, shortlist_size=SHORTLIST))
+    fit_err, departure = check_fit_cuda_vs_cpu(
+        "multi_reg 10M first fit", dv.model, X, torch.from_numpy(dv.y).to(dev),
+        torch.from_numpy(dv.sw).to(dev), coeff)
+    log(f"multi_reg 10M first feedback fit ({X.shape[0]} rows): cuda vs cpu coefficient "
+        f"max_abs_err={fit_err!r}" + (f", solves part {departure}" if departure else ""))
+    rng = np.random.default_rng(0)
+    fs.fused_frame_max.launches = 0  # count only this path's launches
+    out = {}
+    for loss in ("ce_loss", "pairwise_rank_loss"):
+        params = R.session_params("multi_reg", batch_size=BATCH, shortlist_size=SHORTLIST,
+                                  label_loss_type=loss)
+        before = fs.fused_frame_max.launches
+        next_ms, round_ms, syncs = R.drive_session(
+            idx, params, rounds, rng, text=f"a photo for the multi_reg {loss} session")
+        torch.cuda.synchronize()
+        if fs.fused_frame_max.launches - before < rounds:
+            raise AssertionError(f"multi_reg {loss}: {fs.fused_frame_max.launches - before} "
+                                 f"scan launches in {rounds} rounds")
+        p50n, p50r = float(np.median(next_ms[1:])), float(np.median(round_ms[1:]))
+        out[loss] = dict(p50_next_ms=p50n, p50_round_ms=p50r, syncs=syncs)
+        log(f"[{card}] multi_reg {loss} bf16: rounds={rounds} p50_session_next_ms={p50n!r} "
+            f"p50_round_ms={p50r!r} round0_ms={round_ms[0]!r} "
+            f"lbfgs_host_syncs_per_fit={syncs}")
+    launches = fs.fused_frame_max.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{card}] multi_reg path: scan kernel launches={launches} in {2 * rounds} rounds, "
+        f"peak device memory GB={peak!r}")
+    del idx, weights, xlx, X
+    torch.cuda.empty_cache()
+    return dict(launches=launches, xlx_s=xlx_s, xlx_err=xlx_err, fit_err=fit_err,
+                departure=departure, peak_gb=peak, **out)
+
+
+def multireg_fit_bench(dev, card, reps=5):
+    """Phase 9c: one multi-reg fit at the JAX package's refine shape
+    (bench.py bench_refine): 512 unit rows x 512, pairwise_rank_loss, XLX =
+    1e-3 I, max_iter 50; host ms a fit (ending in a synchronize) and host
+    syncs; the coefficient against the CPU port's fit."""
+    import torch
+
+    from seesaw_tpu_torch.learners.multi_reg import RegFit
+    from seesaw_tpu_torch.utils import rounds as R
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(FIT_ROWS, DIM)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    y = rng.integers(0, 2, size=FIT_ROWS).astype(np.float32)
+    q = rng.normal(size=DIM).astype(np.float32)
+    model = RegFit(device=dev, xlx=(np.eye(DIM) * 1e-3).astype(np.float32), qvec=q,
+                   label_loss_type="pairwise_rank_loss", rank_loss_margin=0.0,
+                   pos_weight="balanced", reg_data_lambda=0.1, reg_norm_lambda=10.0,
+                   reg_query_lambda=1.0, max_iter=50)
+    args = [torch.from_numpy(a).to(dev) for a in (X, y, np.ones(FIT_ROWS, np.float32))]
+    model.solve(*args)  # warm-up
+    times = []
+    for _ in range(reps):
+        R.sync(dev)
+        t0 = time.perf_counter()
+        coeff, res = model.solve(*args)
+        R.sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    err, departure = check_fit_cuda_vs_cpu("multi-reg fit 512x512", model, *args,
+                                           coeff.cpu().numpy())
+    ms = float(np.median(times))
+    log(f"[{card}] multi-reg fit {FIT_ROWS}x{DIM} pairwise_rank_loss: p50_ms={ms!r} "
+        f"ms={times} iterations={res.n_iter} host_syncs={res.host_syncs} cuda vs cpu "
+        f"max_abs_err={err!r}" + (f", solves part {departure}" if departure else ""))
+    return dict(ms=ms, times=times, n_iter=res.n_iter, host_syncs=res.host_syncs, err=err,
+                departure=departure)
+
+
+def ens_bench(dev, gen, card):
+    """Phase 9d: `ens_expected_value` at the JAX package's shape (bench.py
+    bench_ens: 1M x 32, K=10, block 4096), CUDA-event ms over 4 score sets,
+    against the CPU port on the same inputs: values within rtol 1e-6 / atol
+    1e-6, the same pick."""
+    import torch
+
+    from seesaw_tpu_torch.ops.ens import ens_expected_value
+    from seesaw_tpu_torch.utils.profiling import cuda_ms
+
+    nbr = torch.randint(0, ENS_N, (ENS_N, ENS_D), dtype=torch.int32, device=dev, generator=gen)
+    num = torch.rand(ENS_N, device=dev, generator=gen) * 0.9 + 0.05
+    den1 = 1.0 + torch.rand(ENS_N, device=dev, generator=gen) * 3.0
+    sets = [(torch.rand(ENS_N, device=dev, generator=gen) * 0.98 + 0.01, num, den1, nbr)
+            for _ in range(4)]
+
+    def ens(*a):
+        return ens_expected_value(*a, K=ENS_K, block_size=ENS_BLOCK)
+
+    got = ens(*sets[0])
+    ms = cuda_ms(ens, sets)
+    want = ens(*(t.cpu() for t in sets[0]))
+    got = got.cpu()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if int(got.argmax()) != int(want.argmax()):
+        raise AssertionError(f"ens: cuda picks {int(got.argmax())}, cpu {int(want.argmax())}")
+    err = float((got - want).abs().max())
+    log(f"[{card}] ens_expected_value N={ENS_N} D={ENS_D} K={ENS_K} block={ENS_BLOCK}: "
+        f"ms={ms!r} cuda vs cpu max_abs_err={err!r} bit-identical={bool(torch.equal(got, want))}")
+    del sets, nbr, num, den1
+    torch.cuda.empty_cache()
+    return dict(ms=ms, err=err)
+
+
 def main() -> int:
     import torch
 
@@ -1235,6 +1593,12 @@ def main() -> int:
     torch.cuda.synchronize()
     del idx
     torch.cuda.empty_cache()
+    # phase 9, before the towers' phases, whose peak memory it would move
+    feedback_launches = check_feedback_sessions_cuda_vs_cpu()
+    multireg = multireg_path(dev, gen, card, clip)
+    fit = multireg_fit_bench(dev, card)
+    ens = ens_bench(dev, gen, card)
+    torch.cuda.synchronize()
     attn = check_attention(dev, gen)
     check_towers(dev, clip_params)
     text_p50, text_times = text_encode_ms(clip)
@@ -1269,7 +1633,12 @@ def main() -> int:
         "name": "fused_frame_max", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/fused_frame_max.cu",
         "replaces": "seesaw_tpu/ops/pallas_scoring.py:43",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches,
+        # phase 5 (the main path); 9a's multi_reg sessions; 9b's 10M multi_reg rounds
+        "launches_by_path": {"main_path": launches,
+                             "feedback_sessions": feedback_launches["fused_frame_max"],
+                             "multi_reg_10M": multireg["launches"]},
+        "max_abs_err": worst,
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
         "library_ms": bf16["library_ms"],
@@ -1279,6 +1648,9 @@ def main() -> int:
         "replaces": "seesaw_tpu/ops/pallas_spmv.py:606,204,210",
         # both entry points of the source; the graph round runs jacobi_step
         "launches": sum(knn_launches.values()), "launches_by_entry": knn_launches,
+        # phase 9a's sessions (pseudo_lr's refines propagate)
+        "launches_by_path": {"knn_prop2_10M": sum(knn_launches.values()),
+                             "feedback_sessions": feedback_launches["jacobi_step"]},
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
         "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],

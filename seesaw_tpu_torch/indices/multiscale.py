@@ -12,8 +12,8 @@ Graph loops rank externally produced per-vector scores with
 `rank_by_scores`; a staged KnnProp2 round runs fused inside it
 (`_rank_deferred_propagation`).
 
-Left out here (see ROADMAP.md): the mesh-sharded index, request coalescing,
-`save` and the multi-reg deferred round. Dropped because
+Left out here (see ROADMAP.md): the mesh-sharded index, request coalescing
+and `save`. Dropped because
 the GPU does not need them: the 1024-frame padding of the Pallas block
 granularity, the routing of int8 around the kernel, and the power-of-two row
 buckets that bounded jit recompiles.
@@ -208,16 +208,17 @@ class MultiscaleIndex(AccessMethod):
         row_scale: Optional[torch.Tensor] = None,
         frame_scale: Optional[torch.Tensor] = None,  # (F,) int8 per-frame
         use_pallas: bool = True,
+        path: Optional[str] = None,
     ) -> "MultiscaleIndex":
         """Serving-scale construction from arrays already on the device, with
         no host copy of the embedding matrix; labeled-row vectors for the
         per-round fits are gathered from the device matrix. The device is
-        V's."""
+        V's; `path` names the index directory (its kNN graphs), if any."""
         del use_pallas
         self = MultiscaleIndex.__new__(MultiscaleIndex)
         self.device = V.device
         self.embedding = embedding
-        self.path = None
+        self.path = path
         self.meta = meta
         self.vectors = None
         self.excluded = BitMap()
@@ -290,6 +291,14 @@ class MultiscaleIndex(AccessMethod):
         if self.meta.n_vectors != int(self._V.shape[0]):
             raise ValueError("device vectors_f32() needs uniform tiling")
         return self._device_rows_f32(torch.arange(self.meta.n_vectors, device=self.device))
+
+    def rows_f32(self, rows: torch.Tensor) -> torch.Tensor:
+        """f32 vectors of exact-layout rows (an int64 tensor on the device),
+        gathered from the device matrix (dequantized for int8); needs uniform
+        tiling, where the exact and padded layouts agree."""
+        if self.meta.n_vectors != int(self._V.shape[0]):
+            raise ValueError("device rows_f32() needs uniform tiling")
+        return self._device_rows_f32(rows)
 
     def get_data(self, dbidx: int) -> dict:
         """One image's tiles: boxes, zoom levels, f32 vectors (host mirror,
@@ -442,6 +451,7 @@ class MultiscaleIndex(AccessMethod):
             handler = {
                 frame_scoring.DeferredRocchio: self._query_rocchio,
                 frame_scoring.DeferredLogistic: self._query_logistic,
+                frame_scoring.DeferredMultiReg: self._query_multireg,
             }[type(vector)]
             return handler(vector, exclude=exclude, rank=rank)
 
@@ -518,6 +528,32 @@ class MultiscaleIndex(AccessMethod):
         out["qvec"] = params_h[:-1].copy()
         out["fit"] = {"params": params_h, "mu": mu_h, "loss": float(f_h[0]),
                       "diverged": False}
+        return out
+
+    def fit_deferred_multireg(self, dv):
+        """Run a DeferredMultiReg's fit on this index's device over the
+        labeled rows gathered from the device matrix (dequantized for int8).
+        Returns (coefficient, LBFGSResult)."""
+        dev = self.device
+        X = self._device_rows_f32(torch.from_numpy(dv.prows).to(dev))
+        coeff, res = dv.model.solve(X, torch.from_numpy(dv.y).to(dev),
+                                    torch.from_numpy(dv.sw).to(dev))
+        self.last_fit = {"n_iter": res.n_iter, "host_syncs": res.host_syncs}
+        return coeff, res
+
+    def _query_multireg(self, dv, *, exclude, rank) -> dict:
+        """MultiReg ('seesaw') round: labeled-row gather + centering + the
+        4-term LBFGS fit + the fused query over the coefficient. A diverged
+        fit raises before the exclusion commit, so the session's state stays
+        clean."""
+        mask, new_ids, token = self._device_exclusion(exclude)
+        coeff, res_fit = self.fit_deferred_multireg(dv)
+        if res_fit.diverged:
+            raise ValueError("multi-reg fit diverged (nan/inf)")
+        res, new_mask = self._fused_query(coeff, mask, new_ids, rank)
+        self._commit_exclusion(token, new_mask)
+        out, (coeff_h,) = self._format_result(res, coeff)
+        out["qvec"] = coeff_h
         return out
 
     def rank_by_scores(

@@ -25,6 +25,11 @@ import numpy as np
 import torch
 
 
+# rows a chunk of the device XLX sums at once: 64k x 512 f32 is 128 MB a
+# gathered neighbour slot
+XLX_CHUNK_ROWS = 1 << 16
+
+
 def rbf_kernel(edist: float) -> Callable[[np.ndarray], np.ndarray]:
     """exp(-d/edist): weight falls to 1/e when cosine distance grows by edist."""
     assert edist > 0
@@ -150,15 +155,40 @@ class SymmetricWeights:
         gathered = x[idx] * (self.nbr >= 0)[..., None]
         return np.einsum("nk,nkd->nd", self.w, gathered)
 
-    def xlx(self, X: np.ndarray, normalize_by_trace: bool = True) -> np.ndarray:
+    def xlx(self, X, normalize_by_trace: bool = True, *, device=None):
         """X^T L X with L = D - W (optionally L / trace(L), the reference's
-        scaling for the multi-reg Laplacian term)."""
-        DX = X * self.degree[:, None]
-        WX = self.apply(X)
-        xlx = X.T @ (DX - WX)
+        scaling for the multi-reg Laplacian term).
+
+        X is a numpy (N, D) array (computed in numpy, as the JAX package
+        does), or a function that returns the f32 rows of an int64 row-id
+        tensor on `device` (e.g. an index's `rows_f32`): then the product is
+        summed over chunks of XLX_CHUNK_ROWS rows on that device, gathering
+        each chunk's neighbour rows one slot at a time, so neither the
+        (N, K, D) gather nor an f32 copy of X is ever made. Returns numpy for
+        numpy X, else a (D, D) f32 tensor on `device`."""
+        if isinstance(X, np.ndarray):
+            DX = X * self.degree[:, None]
+            WX = self.apply(X)
+            xlx = X.T @ (DX - WX)
+            if normalize_by_trace:
+                xlx = xlx / max(self.degree.sum(), 1e-30)
+            return xlx
+        nbr, w, degree = self.device_arrays(device)
+        N, K = nbr.shape
+        acc = None
+        for lo in range(0, N, XLX_CHUNK_ROWS):
+            hi = min(lo + XLX_CHUNK_ROWS, N)
+            Xc = X(torch.arange(lo, hi, device=nbr.device))
+            M = Xc * degree[lo:hi, None]  # D X
+            for k in range(K):  # - W X, one neighbour slot at a time
+                col = nbr[lo:hi, k]
+                wk = torch.where(col >= 0, w[lo:hi, k], 0.0)
+                M.addcmul_(wk[:, None], X(col.clamp(min=0).long()), value=-1.0)
+            part = Xc.T @ M
+            acc = part if acc is None else acc.add_(part)
         if normalize_by_trace:
-            xlx = xlx / max(self.degree.sum(), 1e-30)
-        return xlx
+            acc = acc / max(float(degree.sum()), 1e-30)
+        return acc
 
 
 def forward_weights(

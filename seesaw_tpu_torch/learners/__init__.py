@@ -1,3 +1,3 @@
 """Per-round feedback learners (linear probes), in PyTorch."""
 
-from .logistic_regression import LogisticRegression  # noqa: F401
+from .logistic_regression import LogisticRegression, RankRegression  # noqa: F401

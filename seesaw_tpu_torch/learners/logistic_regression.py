@@ -1,10 +1,12 @@
 """Logistic probe fit per feedback round, in PyTorch.
 
-Counterpart of `seesaw_tpu/learners/logistic_regression.py` for the
-cross-entropy probe (`LogisticRegression`): weighted binary cross-entropy
-with balanced class weights, optional centering, the anchor regularizer
+Counterpart of `seesaw_tpu/learners/logistic_regression.py`: the
+cross-entropy probe (`LogisticRegression`: weighted binary cross-entropy
+with balanced class weights) and the rank probe (`RankRegression`: the
+sorted pairwise-rank loss of `ops.rank_loss.cheap_pairwise_rank_loss`, no
+intercept), each with optional centering, the anchor regularizer
 (|w| - 1)^2 + |w/|w| - q̂|^2 weighted by reg_lambda / n, warm starts, and
-the LBFGS of `ops.lbfgs`. The rank-loss probe waits for `ops/rank_loss.py`.
+the LBFGS of `ops.lbfgs`.
 
 The JAX version pads the labeled rows to power-of-two buckets to bound jit
 recompiles; PyTorch runs eagerly, so the rows here are exactly the labeled
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.lbfgs import lbfgs_minimize
+from ..ops.rank_loss import cheap_pairwise_rank_loss
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -41,6 +44,18 @@ def _ce_loss(Xc, y, sw, pos_weight, reg_weight, anchor, *, fit_intercept, mean_o
         logits = Xc @ w + (b if fit_intercept else 0.0)
         per = _softplus(-logits) * y * pos_weight + _softplus(logits) * (1.0 - y)
         data = (per * sw).sum() / mean_over
+        return data + reg_weight * _anchor_regularizer(w, anchor)
+
+    return loss
+
+
+def _rank_loss(Xc, y, reg_weight, anchor, *, fit_intercept):
+    d = Xc.shape[1]
+
+    def loss(params):
+        w, b = params[:d], params[d]
+        logits = Xc @ w + (b if fit_intercept else 0.0)
+        data = cheap_pairwise_rank_loss(y, logits).sum()
         return data + reg_weight * _anchor_regularizer(w, anchor)
 
     return loss
@@ -78,6 +93,8 @@ def _fit_ce_rows(
 class LogisticRegression:
     """Weighted-BCE linear probe. `device` is where fits on host arrays run;
     fits over an index's rows run on the index's device."""
+
+    loss_kind = "ce"
 
     def __init__(
         self,
@@ -142,13 +159,18 @@ class LogisticRegression:
         else:
             self.mu_ = np.zeros(d, dtype=np.float32)
         dev = self.device
-        sw = self._sample_weights(n, sample_weights)
-        loss = _ce_loss(
-            self._tensor(X, dev), self._tensor(y, dev), self._tensor(sw, dev),
-            self._pos_weight(y), self.reg_lambda / n,
-            self._tensor(self.anchor_, dev) if self.anchor_ is not None else None,
-            fit_intercept=self.fit_intercept, mean_over=float(n),
-        )
+        anchor = self._tensor(self.anchor_, dev) if self.anchor_ is not None else None
+        if self.loss_kind == "ce":
+            sw = self._sample_weights(n, sample_weights)
+            loss = _ce_loss(
+                self._tensor(X, dev), self._tensor(y, dev), self._tensor(sw, dev),
+                self._pos_weight(y), self.reg_lambda / n, anchor,
+                fit_intercept=self.fit_intercept, mean_over=float(n),
+            )
+        else:  # the rank loss takes no sample weights, as in the JAX package
+            loss = _rank_loss(self._tensor(X, dev), self._tensor(y, dev),
+                              self.reg_lambda / n, anchor,
+                              fit_intercept=self.fit_intercept)
         res = lbfgs_minimize(
             loss, self._tensor(self._params0(d), dev),
             max_iter=self.max_iter, history=10,
@@ -160,9 +182,10 @@ class LogisticRegression:
 
     def fit_rows(self, index, rows, y, sample_weights=None):
         """Fit over INDEX rows: on the index's device when it has no host
-        mirror, through `fit` on the mirror's rows otherwise."""
+        mirror (the cross-entropy probe), through `fit` on the rows'
+        vectors otherwise."""
         rows = np.asarray(rows, dtype=np.int64)
-        if getattr(index, "vectors", None) is not None:
+        if getattr(index, "vectors", None) is not None or self.loss_kind != "ce":
             return self.fit(index.vectors_for_rows(rows), y, sample_weights)
         dv = self.deferred_fit_rows(index, rows, y, sample_weights)
         res, mu = index.fit_deferred_logistic(dv)
@@ -178,6 +201,7 @@ class LogisticRegression:
         returned 'fit' payload with `apply_fit_result` to keep warm starts."""
         from ..ops.frame_scoring import DeferredLogistic
 
+        assert self.loss_kind == "ce"
         rows = np.asarray(rows, dtype=np.int64)
         y = np.asarray(y, dtype=np.float32).reshape(-1)
         n = rows.shape[0]
@@ -208,3 +232,15 @@ class LogisticRegression:
     def get_coeff(self) -> np.ndarray:
         assert self.params_ is not None
         return self.params_[:-1].copy()
+
+
+class RankRegression(LogisticRegression):
+    """Pairwise-rank-loss probe; no intercept and no class weights by
+    default."""
+
+    loss_kind = "rank"
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("fit_intercept", False)
+        kwargs.setdefault("class_weights", None)
+        super().__init__(**kwargs)

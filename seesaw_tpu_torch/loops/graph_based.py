@@ -14,12 +14,13 @@ card's kernel reads the graph's own (N, Kp) arrays. The option
 from __future__ import annotations
 
 import threading
-from typing import Optional
 
 import numpy as np
 from pydantic import BaseModel
 
-from ..knn_graph import KNNGraph, forward_weights, rbf_kernel, symmetrize_weights
+from ..knn_graph import (
+    KNNGraph, SymmetricWeights, forward_weights, rbf_kernel, symmetrize_weights,
+)
 from .knn_methods import LabelPropagationRanker2
 from .loop_base import LoopBase
 
@@ -39,37 +40,59 @@ _wm_lock = threading.Lock()
 
 
 def lookup_weights(opts: WeightMatrixOptions, *, use_cache: bool = True,
-                   X_vectors: Optional[np.ndarray] = None):
-    """Weight structure (or the XLX matrix) for a graph path, cached."""
+                   X_vectors=None, device=None):
+    """Weight structure (or the XLX matrix) for a graph path, cached. The
+    XLX matrix takes X_vectors as `SymmetricWeights.xlx` does: a host
+    matrix, or a row function on `device`. It is made from the (cached)
+    weight structure of the same options."""
     key = opts.model_dump_json()
     with _wm_lock:
         if use_cache and key in _wm_cache:
             return _wm_cache[key]
-    knng = KNNGraph.from_file(opts.knn_path).restrict_k(k=opts.knn_k)
-    if opts.symmetric:
-        weights = symmetrize_weights(knng, rbf_kernel(opts.edist))
-    else:
-        # uniform-degree forward adjacency (self included, weight 0)
-        weights = forward_weights(knng, rbf_kernel(opts.edist))
     if opts.xlx_matrix:
         assert X_vectors is not None
-        out = weights.xlx(X_vectors, normalize_by_trace=True)
+        weights = lookup_weights(opts.model_copy(update={"xlx_matrix": False}),
+                                 use_cache=use_cache)
+        out = weights.xlx(X_vectors, normalize_by_trace=True, device=device)
     else:
-        out = weights
+        knng = KNNGraph.from_file(opts.knn_path).restrict_k(k=opts.knn_k)
+        if opts.symmetric:
+            out = symmetrize_weights(knng, rbf_kernel(opts.edist))
+        else:
+            # uniform-degree forward adjacency (self included, weight 0)
+            out = forward_weights(knng, rbf_kernel(opts.edist))
     if use_cache:
         with _wm_lock:
             out = _wm_cache.setdefault(key, out)
     return out
 
 
-def get_weights_from_index(idx, weight_matrix_options: dict, xlx_matrix: bool = False,
-                           X_vectors=None):
+def _index_options(idx, weight_matrix_options: dict, xlx_matrix: bool):
     opts = WeightMatrixOptions(**weight_matrix_options)
     opts.xlx_matrix = xlx_matrix
     opts.knn_path = str(idx.get_knng_path(name=weight_matrix_options.get("knn_path", "")))
+    return opts
+
+
+def get_weights_from_index(idx, weight_matrix_options: dict, xlx_matrix: bool = False,
+                           X_vectors=None):
+    """The index's weight structure, or its XLX matrix over X_vectors, made
+    on the index's device when X_vectors is a row function."""
+    opts = _index_options(idx, weight_matrix_options, xlx_matrix)
     use_cache = "subset" not in opts.knn_path
     return lookup_weights(opts, use_cache=use_cache,
-                          X_vectors=X_vectors if xlx_matrix else None)
+                          X_vectors=X_vectors if xlx_matrix else None,
+                          device=idx.device)
+
+
+def seed_weights(idx, weight_matrix_options: dict, weights: SymmetricWeights):
+    """Cache a weight structure made in memory (`utils.rounds.
+    window_local_graph`) as the graph `weight_matrix_options` names under
+    the index's path, so that loops over the index take it instead of
+    reading a file."""
+    key = _index_options(idx, weight_matrix_options, False).model_dump_json()
+    with _wm_lock:
+        _wm_cache[key] = weights
 
 
 def get_label_prop(q, label_prop_params: dict) -> LabelPropagationRanker2:

@@ -188,6 +188,20 @@ class DeferredLogistic(DeferredVector):
             setattr(self, k, kw[k])
 
 
+class DeferredMultiReg(DeferredVector):
+    """Deferred multi-regularized 'seesaw' fit: labeled-row gather +
+    centering + the 4-term LBFGS objective (`learners.multi_reg.RegFit`, the
+    `model`, holds its options) run inside the query over the fitted
+    coefficient (`MultiscaleIndex._query_multireg`). Built by
+    `RegFit.deferred_fit_rows`."""
+
+    __slots__ = ("prows", "y", "sw", "model")
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw[k])
+
+
 class DeferredRocchio(DeferredVector):
     """q = alpha*q0 + beta*mean(pos rows) - gamma*mean(neg rows), resolved on
     the device inside the query (`MultiscaleIndex._query_rocchio`)."""

@@ -9,6 +9,9 @@ rounds under `torch.profiler`:
 
 - `rocchio_update`, `log_reg2`: sessions (`rounds.drive_session`), with the
   `next` times and the LBFGS host syncs of each fit;
+- `multi_reg` (not in the default `--loops`): sessions as above, regularized
+  by a window-local K=32 graph of the index's rows whose XLX matrix is
+  summed on the device first (`rounds.multireg_xlx`);
 - `knn_prop2`: the graph round (`rounds.drive_knnprop_rounds`) over a
   window-local K=32 graph of the index's rows made on the device, with the
   Jacobi iterations and host reads of each fused round.
@@ -171,13 +174,18 @@ def main(argv=None) -> int:
     print(tag, flush=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    idx = R.device_index(args.n_vectors, args.dim, "bfloat16", device=dev, generator=gen)
+    # the path names the in-memory graph that multi_reg's weight cache holds
+    idx = R.device_index(args.n_vectors, args.dim, "bfloat16", device=dev, generator=gen,
+                         path=str(Path("build") / "seesaw_tpu_torch" / "profile_index"))
+    n = args.n_vectors // R.TILES * R.TILES
     tables = []
     for method in args.loops.split(","):
         if method == "knn_prop2":
-            drive = _knnprop_drive(idx, R.window_local_graph(
-                args.n_vectors // R.TILES * R.TILES, KNN_K, dev, gen))
+            drive = _knnprop_drive(idx, R.window_local_graph(n, KNN_K, dev, gen))
         else:
+            if method == "multi_reg":
+                R.multireg_xlx(idx, R.window_local_graph(n, R.MULTIREG_GRAPH_K, dev, gen),
+                               R.LOOP_OPTIONS["multi_reg"]["matrix_options"])
             drive = _session_drive(idx, method, rng)
         tables.append(profile_loop(idx, method, *drive, args, tag)[1])
     out = Path(args.out)

@@ -44,6 +44,7 @@ from ..basic_types import Box, IndexSpec, SessionParams
 from ..indices.meta import VectorMeta
 from ..indices.multiscale import MultiscaleIndex
 from ..knn_graph import SymmetricWeights
+from ..loops.graph_based import get_weights_from_index, seed_weights
 from ..loops.knn_methods import LabelPropagationRanker2
 from ..models.clip_finetune import CLIPFineTuner
 from ..ops import attention, fused_scoring, spmv
@@ -62,10 +63,18 @@ _BOXES = np.array([
 ], dtype=np.float32)
 _ZOOM = np.array([1, 1, 1, 1, 2, 2, 2, 3], dtype=np.int32)
 
+# the graph the multi_reg sessions regularize with (`window_local_graph`,
+# cached under the index's path by `multireg_xlx`)
+MULTIREG_GRAPH_K = 32
 LOOP_OPTIONS = {
     "rocchio_update": dict(rocchio_alpha=1.0, rocchio_beta=0.7, rocchio_gamma=0.3),
     "log_reg2": dict(class_weights="balanced", scale="centered", reg_lambda=5.0,
                      fit_intercept=False, max_iter=50),
+    # seesaw_tpu/configs.py's "multi_reg", over the MULTIREG_GRAPH_K graph
+    "multi_reg": dict(matrix_options=dict(knn_path="", knn_k=MULTIREG_GRAPH_K, edist=0.1),
+                      label_loss_type="ce_loss", rank_loss_margin=0.0,
+                      pos_weight="balanced", reg_data_lambda=0.1, reg_norm_lambda=10.0,
+                      reg_query_lambda=1.0, max_iter=100),
 }
 
 
@@ -75,12 +84,14 @@ def sync(device: torch.device):
 
 
 def device_index(n_vectors: int, dim: int, dtype: str, *, device,
-                 generator: torch.Generator, embedding=None) -> MultiscaleIndex:
+                 generator: torch.Generator, embedding=None,
+                 path: str | None = None) -> MultiscaleIndex:
     """(n_vectors, dim) bf16 (or int8 with per-row scales) matrix of random
     tile vectors made on `device`, all tiles valid; host metadata only. The
     text query goes through `embedding` (a `ClipEmbedding` whose `dim` is
     `dim`), or by default through a stub that returns seeded random
-    vectors."""
+    vectors. `path` names the index directory, under which `multireg_xlx`
+    caches a graph."""
     dev = torch.device(device)
     F = n_vectors // TILES
     n = F * TILES
@@ -110,26 +121,44 @@ def device_index(n_vectors: int, dim: int, dtype: str, *, device,
         valid=torch.ones(F, TILES, dtype=torch.bool, device=dev),
         boxes=torch.from_numpy(_BOXES).to(dev).repeat(F, 1),
         zoom=torch.from_numpy(_ZOOM).to(dev).repeat(F),
-        meta=meta, row_scale=row_scale,
+        meta=meta, row_scale=row_scale, path=path,
     )
 
 
-def session_params(method: str, *, batch_size: int, shortlist_size: int) -> SessionParams:
+def session_params(method: str, *, batch_size: int, shortlist_size: int,
+                   **options) -> SessionParams:
+    """LOOP_OPTIONS[method], with `options` over them."""
     return SessionParams(
         index_spec=IndexSpec(d_name="bench", i_name="synth"),
         interactive=method, batch_size=batch_size, shortlist_size=shortlist_size,
-        interactive_options=LOOP_OPTIONS[method],
+        interactive_options=dict(LOOP_OPTIONS[method], **options),
     )
+
+
+def multireg_xlx(idx: MultiscaleIndex, weights: SymmetricWeights,
+                 matrix_options: dict) -> tuple[torch.Tensor, float]:
+    """Cache `weights` as the graph that `matrix_options` names under the
+    index's path (`loops.graph_based.seed_weights`), then make and cache the
+    index's XLX matrix as a MultiReg session does, from the index's device
+    rows in row chunks. Returns (XLX, host-clock seconds ending in a device
+    sync); later sessions over the index take both from the cache."""
+    seed_weights(idx, matrix_options, weights)
+    sync(idx.device)
+    t0 = time.perf_counter()
+    xlx = get_weights_from_index(idx, matrix_options, xlx_matrix=True, X_vectors=idx.rows_f32)
+    sync(idx.device)
+    return xlx, time.perf_counter() - t0
 
 
 def drive_session(idx: MultiscaleIndex, params: SessionParams, rounds: int,
                   rng: np.random.Generator, text: str = "a benchmark query"):
     """Set the text query `text`, then run `rounds` clicks (next, label,
-    update_state, refine). Returns the
-    host-clock ms of each `next` and each whole round (each ending in a
-    device sync) and the LBFGS host syncs of each LogReg2 fit. On a CUDA
-    index every round must launch the fused kernel. The labeling,
-    update_state and refine steps are named spans in a profiler trace."""
+    update_state, refine). Returns the host-clock ms of each `next` and each
+    whole round (each ending in a device sync) and the LBFGS host syncs of
+    each deferred fit (LogReg2, MultiReg). On a CUDA index every round must
+    launch the fused kernel. The labeling, update_state and refine steps
+    are named spans in a profiler trace. For multi_reg, the graph must be
+    cached first (`multireg_xlx`)."""
     dataset = SimpleNamespace(get_urls=lambda b: [f"b://{int(i)}" for i in b])
     s = Session(None, dataset, idx, params)
     s.set_text(text)

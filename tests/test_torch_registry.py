@@ -1,4 +1,5 @@
-"""The port's model registry (`seesaw_tpu_torch.models.registry`): one cached
+"""The port's loop registry holds the JAX package's methods. The port's model
+registry (`seesaw_tpu_torch.models.registry`): one cached
 embedding per (name, device), a `clip-*` model on the device it was asked
 for, and "cuda" and "cuda:<current>" as one card (`cuda`-marked, skipped
 without a GPU)."""
@@ -39,3 +40,12 @@ def test_cuda_and_indexed_cuda_share_one_model():
     assert load_embedding("clip-test", torch.device(current)) is emb
     assert {str(p.device) for p in emb.model.parameters()} == {current}
     assert load_embedding("clip-test", "cpu") is not emb
+
+
+def test_loop_registry_holds_every_jax_method():
+    """The port's loop registry names the JAX package's eleven methods."""
+    from seesaw_tpu.loops.registry import available_methods as jax_methods
+    from seesaw_tpu_torch.loops.registry import available_methods
+
+    assert available_methods() == jax_methods()
+    assert len(available_methods()) == 11

@@ -109,3 +109,60 @@ def test_knnprop_rounds(warm_start):
     assert all(0 < i < 100 for i in out["iters"])
     assert out["host_reads"] == [1] * 5
     assert ranker.last_result.converged
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_chunked_device_xlx_matches_numpy(dtype, monkeypatch):
+    """`SymmetricWeights.xlx` over an index's device rows (`rows_f32`),
+    summed in row chunks that do not divide N, against the numpy xlx of the
+    same rows at 4096 x 32 (chip_smoke phase 9b checks the same at 200k
+    rows on the card). Tolerance: rtol 1e-5 / atol 1e-5 x max|XLX|, f32 sums
+    of 131k products in another order."""
+    from seesaw_tpu_torch import knn_graph
+    from seesaw_tpu_torch.knn_graph import SymmetricWeights
+
+    monkeypatch.setattr(knn_graph, "XLX_CHUNK_ROWS", 1000)
+    gen = torch.Generator().manual_seed(3)
+    idx = R.device_index(N_VECTORS, DIM, dtype, device="cpu", generator=gen)
+    g = R.window_local_graph(N_VECTORS, 32, "cpu", gen)
+    got = g.xlx(idx.rows_f32, device="cpu")
+    X = idx.rows_f32(torch.arange(N_VECTORS)).numpy()
+    want = SymmetricWeights(g.nbr.numpy(), g.w.numpy(), g.degree.numpy()).xlx(X)
+    assert got.shape == (DIM, DIM) and got.dtype == torch.float32
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("loss", ["ce_loss", "pairwise_rank_loss"])
+def test_multireg_device_rounds(tmp_path, loss):
+    """chip_smoke phase 9b at 4096 x 32: the graph cached under the device
+    index's path, the XLX matrix from the device rows, then MultiReg
+    sessions whose every feedback round fits inside the query."""
+    gen = torch.Generator().manual_seed(4)
+    idx = R.device_index(N_VECTORS, DIM, "bfloat16", device="cpu", generator=gen,
+                         path=str(tmp_path / "index"))
+    opts = R.LOOP_OPTIONS["multi_reg"]["matrix_options"]
+    xlx, seconds = R.multireg_xlx(idx, R.window_local_graph(N_VECTORS, R.MULTIREG_GRAPH_K,
+                                                            "cpu", gen), opts)
+    assert xlx.shape == (DIM, DIM) and seconds > 0
+    params = R.session_params("multi_reg", batch_size=3, shortlist_size=50,
+                              label_loss_type=loss)
+    next_ms, round_ms, syncs = R.drive_session(idx, params, 4, np.random.default_rng(0))
+    assert len(round_ms) == 4
+    assert syncs and all(s >= 2 for s in syncs)  # a deferred fit in the feedback rounds
+    assert not (tmp_path / "index").exists()  # the graph came from the cache
+
+
+def test_profile_round_multi_reg_on_cpu(tmp_path, capsys):
+    """`--loops multi_reg`: the graph cached and its XLX made first, then
+    traced sessions whose feedback rounds fit inside the query."""
+    rc = profile_round.main([
+        "--device", "cpu", "--n-vectors", str(N_VECTORS), "--dim", str(DIM),
+        "--rounds", "3", "--loops", "multi_reg", "--out", str(tmp_path / "t.txt"),
+    ])
+    assert rc == 0
+    (rec,) = [json.loads(line.split("] ", 1)[1])
+              for line in capsys.readouterr().out.splitlines() if line.startswith("[cpu] ")]
+    assert rec["loop"] == "multi_reg" and len(rec["round_ms"]) == 3
+    assert rec["lbfgs_host_syncs"]
+    assert set(rec["host_span_ms_per_round"]) == set(profile_round.SPANS)
