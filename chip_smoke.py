@@ -111,6 +111,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       clock, host syncs, against the CPU port as in b;
    d. `ens_expected_value` at 1M x 32, K=10, block 4096: CUDA-event ms,
       values against the CPU port (rtol 1e-6 / atol 1e-6) and the same pick.
+10. the offline build (`seesaw_tpu_torch.ingest`, `ops.knn`), run last, on
+    480 synthetic 1280 x 720 JPEGs (BDD100K's frame size: 20 tiles a frame):
+   a. the device tiler on the card against the CPU for 8 frames (atol
+      2e-4), their ViT-B/32 f32 vectors (phase 7b's bar, 12 K5 launches);
+      `exact_knn` at 20,000 x 512 clustered rows with planted duplicate rows,
+      card against CPU: distances within KNN_TOL, ids equal outside
+      near-ties, duplicates lowest id first;
+   b. each stage alone (decode pool, upload + device tiling, B=256 encode
+      in f32 and bf16), then `run_multiscale_extraction` and
+      `create_multiscale_index` (clip-vit-b32 at full width and depth,
+      seeded weights, B=256, device tiling, the exact K=32 graph) in bf16
+      and f32: images/s, tiles/s, 12 K5 launches a batch; the saved index
+      loaded back through the loader on the card, 4 `plain` rounds (K1 each
+      round) and 4 `knn_prop2` rounds over the built graph (`jacobi_step` in
+      each propagating round); a coarse index derived, loaded and queried;
+   c. `exact_knn` over 1M x 512 clustered unit vectors made on the card
+      (bench.py:1422-1428 at d = 512), K=32, TF32 off: seconds, peak
+      memory, 512 rows against an f64 brute force on the card.
 
 The line before the last is the kernel record (JSON); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -120,6 +138,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import shutil
 import sys
 import time
@@ -495,11 +514,16 @@ def write_clip_artifact(path: Path, d: int, seed=0) -> str:
 
 
 def write_synthetic_root(root: Path, n_images=80, d=32, seed=0):
-    """A planted multiscale index in the on-disk format both packages read
-    (vectors.npz + info.json), like tests/synth.py, whose info.json names a
-    small CLIP artifact written beside the root: positives hold a tile near
-    that model's text embedding of the query. Returns (gdm, gt, model name)."""
+    """A planted multiscale index, like tests/synth.py, saved by the port's
+    `MultiscaleIndex.save` in the on-disk format both packages read, whose
+    info.json names a small CLIP artifact written beside the root: positives
+    hold a tile near that model's text embedding of the query. Its k=8 kNN
+    graph is the port's exact build on the CPU. Returns (gdm, gt, model
+    name)."""
     from seesaw_tpu_torch import GlobalDataManager
+    from seesaw_tpu_torch.indices.meta import VectorMeta
+    from seesaw_tpu_torch.indices.multiscale import MultiscaleIndex
+    from seesaw_tpu_torch.knn_graph import KNNGraph
     from seesaw_tpu_torch.models.registry import load_embedding
 
     model = write_clip_artifact(root.with_name(root.name + "_clip"), d, seed)
@@ -527,29 +551,15 @@ def write_synthetic_root(root: Path, n_images=80, d=32, seed=0):
             vecs.append(v)
         if is_pos[i]:
             gt[i] = quads[target]
+    meta, order = VectorMeta.from_arrays(np.array(dbidx), np.array(zoom),
+                                         np.array(boxes, np.float32))
+    idx = MultiscaleIndex(device="cpu", vectors=np.stack(vecs)[order], meta=meta)
     path = Path(ds.index_path("multiscale"))
-    path.mkdir(parents=True)
-    np.savez(path / "vectors.npz", vectors=np.stack(vecs), dbidx=np.array(dbidx),
-             zoom_level=np.array(zoom), boxes=np.array(boxes, np.float32))
-    (path / "info.json").write_text(json.dumps({
-        "constructor": "seesaw_tpu.indices.multiscale.MultiscaleIndex",
-        "model": model, "excluded": [],
-    }))
-    # k=8: multi_reg's degree (phase 9a); the other graph loops restrict it
-    save_knn_graph(np.stack(vecs), path / "knn_graph", k=8)
+    idx.save(str(path), model_name=model)
+    # k=8: multi_reg's degree (phase 9a); the other graph loops restrict it.
+    # Ascending distance, lower row first on equal similarity
+    KNNGraph.build(idx.vectors, 8, device="cpu").save(path / "knn_graph")
     return gdm, gt, model
-
-
-def save_knn_graph(V: np.ndarray, path: Path, k: int):
-    """Brute-force cosine kNN of the index's rows (ascending distance, lower
-    row first on ties), saved in the reference's `forward.parquet` format by
-    the port's KNNGraph."""
-    from seesaw_tpu_torch.knn_graph import KNNGraph
-
-    dist = 1.0 - V @ V.T
-    np.fill_diagonal(dist, np.inf)
-    dst = np.argsort(dist, axis=1, kind="stable")[:, :k]
-    KNNGraph(dst, np.take_along_axis(dist, dst, axis=1)).save(path)
 
 
 SESSION_OPTIONS = {
@@ -1545,6 +1555,365 @@ def ens_bench(dev, gen, card):
     return dict(ms=ms, err=err)
 
 
+# -- phase 10 ----------------------------------------------------------------
+INGEST_HW = (720, 1280)  # BDD100K's frame size: make_plan gives 20 tiles an image
+INGEST_IMAGES, INGEST_CHECK_IMAGES, INGEST_BATCH, INGEST_GRAPH_K = 480, 8, 256, 32
+INGEST_TILES = 20
+# tiles on the card vs the CPU after CLIP normalization: the same
+# antialiased resize summed in another order (~5e-5 of a [0, 1] pixel),
+# divided by a std of 0.26 or more
+TILE_TOL = 2e-4
+# kNN distances (and the gap below which neighbours count as tied): an f32
+# dot of two unit 512-vectors summed in order parts from the exact one by
+# ~1.7e-7 (std, simulated for dots near 0.9, the clusters' similarity), so
+# two f32 orders by ~2.4e-7; 2e-6 is eight of those
+KNN_TOL = 2e-6
+KNN_CHECK_N, KNN_CHECK_K = 20_000, 32
+# the 10c corpus: bench.py:1422-1428's clustered unit vectors at d = 512,
+# 1M rows (a ~52k-image BDD-like corpus at 20 tiles an image)
+KNN_SCALE_N, KNN_SCALE_CLUSTERS, KNN_SCALE_K, KNN_SCALE_CHECK = 1 << 20, 16384, 32, 512
+# the traced build: the first 128k rows, whose blocks and chunks have the
+# full build's shapes (4096 x 65536)
+KNN_PROFILE_N = 1 << 17
+
+
+def write_jpegs(d: Path, n: int, seed: int) -> list[Path]:
+    """n synthetic 1280 x 720 JPEGs (quality 90): a smooth random field with
+    pixel noise, so that no tile is flat."""
+    import PIL.Image
+    from concurrent.futures import ThreadPoolExecutor
+
+    d.mkdir(parents=True, exist_ok=True)
+    h, w = INGEST_HW
+
+    def one(i):
+        rng = np.random.default_rng(seed + i)
+        base = PIL.Image.fromarray(rng.integers(0, 256, size=(h // 40, w // 40, 3), dtype=np.uint8))
+        arr = np.asarray(base.resize((w, h), PIL.Image.BICUBIC), dtype=np.int16)
+        arr = arr + rng.integers(-12, 13, size=arr.shape, dtype=np.int16)
+        p = d / f"frame_{i:05d}.jpg"
+        PIL.Image.fromarray(arr.clip(0, 255).astype(np.uint8)).save(p, quality=90)
+        return p
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def clustered_unit_rows(n: int, d: int, n_clusters: int, gen, device):
+    """bench.py:1422-1428's corpus made on `device`: cluster centers times 3
+    plus unit noise, normalized, rows permuted."""
+    import torch
+
+    centers = torch.randn(n_clusters, d, generator=gen, device=device)
+    V = centers[torch.arange(n, device=device) % n_clusters] * 3.0
+    V += torch.randn(n, d, generator=gen, device=device)
+    V /= V.norm(dim=1, keepdim=True)
+    return V[torch.randperm(n, generator=gen, device=device)]
+
+
+def check_planted_ties(ids: np.ndarray, groups):
+    """Each member of a group of identical rows lists the group's other
+    members first, ascending (lower id first on equal similarity)."""
+    for g in groups:
+        for row in g:
+            want = [m for m in g if m != row][:ids.shape[1]]
+            if ids[row, :len(want)].tolist() != want:
+                raise AssertionError(f"row {row} of duplicate group {g}: "
+                                     f"{ids[row, :len(g)].tolist()}")
+
+
+def check_ingest_cuda_vs_cpu(dev, clip_params, paths):
+    """Phase 10a: the device tiler and the ViT-B/32 f32 vectors of 8 frames
+    on the card against the CPU; `exact_knn` at 20,000 x 512 (clustered, with
+    planted duplicate rows) on the card against the CPU."""
+    import PIL.Image
+    import torch
+
+    from seesaw_tpu_torch.ingest.device_tiling import make_plan, tile_images
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.ops import attention as A
+    from seesaw_tpu_torch.ops.knn import assert_knn_close, exact_knn
+
+    imgs = torch.from_numpy(np.stack([np.asarray(PIL.Image.open(p).convert("RGB"))
+                                      for p in paths[:INGEST_CHECK_IMAGES]]))
+    plan = make_plan(*INGEST_HW)
+    if plan.n_tiles != INGEST_TILES:
+        raise AssertionError(f"{plan.n_tiles} tiles a 1280x720 frame, not {INGEST_TILES}")
+    t_gpu = tile_images(plan, imgs.to(dev))
+    t_cpu = tile_images(plan, imgs)
+    tile_err = float((t_gpu.cpu() - t_cpu).abs().max())
+    if not tile_err <= TILE_TOL:
+        raise AssertionError(f"device tiles: card vs cpu {tile_err!r} > {TILE_TOL}")
+    before = A.pair_attention.launches
+    v_gpu = ClipEmbedding("vit-b32", device=dev, params=clip_params).encode_image_batch(t_gpu)
+    torch.cuda.synchronize()
+    if A.pair_attention.launches - before != TOWER_LAYERS:
+        raise AssertionError("the tile batch did not launch the attention kernel per layer")
+    v_cpu = ClipEmbedding("vit-b32", device="cpu", params=clip_params).encode_image_batch(t_cpu)
+    v_gpu = torch.nn.functional.normalize(v_gpu.cpu(), dim=1).numpy()
+    v_cpu = torch.nn.functional.normalize(v_cpu, dim=1).numpy()
+    if v_gpu.shape != (INGEST_CHECK_IMAGES * INGEST_TILES, 512) or not np.isfinite(v_gpu).all():
+        raise AssertionError(f"tile vectors: shape {v_gpu.shape} or non-finite values")
+    np.testing.assert_allclose(v_gpu, v_cpu, **TOWER_TOL)
+    vec_err = float(np.abs(v_gpu - v_cpu).max())
+    log(f"ingest 10a: {INGEST_CHECK_IMAGES} frames 1280x720 -> {plan.n_tiles} tiles each; "
+        f"tiles card vs cpu max_abs_err={tile_err!r} (tol {TILE_TOL}); vit-b32 f32 unit "
+        f"vectors max_abs_err={vec_err!r} (tol {TOWER_TOL})")
+
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    X = clustered_unit_rows(KNN_CHECK_N, 512, KNN_CHECK_N // 64, gen, "cpu")
+    n = KNN_CHECK_N
+    groups = [[11, 12, n // 4, n - 1], [40, 41], [n * 7 // 20, n * 13 // 20, n * 13 // 20 + 1]]
+    for g in groups:
+        X[g[1:]] = X[g[0]].clone()
+    t0 = time.perf_counter()
+    ids_gpu, d_gpu = exact_knn(X.to(dev), KNN_CHECK_K, device=dev)
+    gpu_s = time.perf_counter() - t0
+    ids_cpu, d_cpu = exact_knn(X, KNN_CHECK_K, device="cpu")
+    out = assert_knn_close(ids_gpu, d_gpu, ids_cpu, d_cpu, KNN_TOL)
+    for ids in (ids_gpu, ids_cpu):
+        check_planted_ties(ids, groups)
+    log(f"ingest 10a: exact_knn {KNN_CHECK_N}x512 K={KNN_CHECK_K} card vs cpu: "
+        f"max_dist_err={out['max_dist_err']!r} (tol {KNN_TOL}); ids equal at "
+        f"{int((ids_gpu == ids_cpu).sum())} of {ids_gpu.size} places, "
+        f"{out['ids_compared']} held outside near-ties; planted ties lowest id first on both; "
+        f"card s={gpu_s!r}")
+    return {"tile_max_abs_err": tile_err, "vector_max_abs_err": vec_err,
+            "knn_max_dist_err": out["max_dist_err"]}
+
+
+def ingest_stage_rates(dev, clip_params, paths):
+    """Each ingest stage alone, over the 480 frames, host clock ending in a
+    synchronize: the decode pool; the upload and device tiling of decoded
+    frames; the ViT-B/32 encode of B=256 tile batches (f32 and bf16)."""
+    import torch
+
+    from seesaw_tpu_torch.ingest.device_tiling import build_tiler, make_plan
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.runtime.jpeg_decode import decode_pool, native_available
+
+    t0 = time.perf_counter()
+    decoded = {i: np.require(img, requirements=("C", "W"))
+               for i, img in decode_pool([str(p) for p in paths], n_threads=8)}
+    decode_s = time.perf_counter() - t0
+    if len(decoded) != len(paths) or any(v is None for v in decoded.values()):
+        raise AssertionError("the decode pool lost a frame")
+    tiler = build_tiler(make_plan(*INGEST_HW))
+    tiler(torch.from_numpy(decoded[0]).to(dev))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(len(paths)):
+        tiles = tiler(torch.from_numpy(decoded[i]).to(dev))
+    torch.cuda.synchronize()
+    tile_s = time.perf_counter() - t0
+    del tiles
+    rates = {"decoder": "native libjpeg pool" if native_available() else "PIL",
+             "host_cpus": os.cpu_count(),
+             "decode_images_per_s": len(paths) / decode_s,
+             "upload_tile_images_per_s": len(paths) / tile_s}
+    px = torch.randn(INGEST_BATCH, 224, 224, 3, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        emb = ClipEmbedding("vit-b32", device=dev, params=clip_params, dtype=getattr(torch, dtype))
+        emb.encode_image_batch(px)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            emb.encode_image_batch(px)
+        torch.cuda.synchronize()
+        rates[f"encode_images_per_s_{dtype}"] = 5 * INGEST_BATCH / INGEST_TILES / (
+            time.perf_counter() - t0)
+        del emb
+    return rates
+
+
+def ingest_path(dev, card, clip_params, paths):
+    """Phase 10b: 480 synthetic 1280x720 JPEGs -> `create_multiscale_index`
+    (clip-vit-b32 at full width and depth, seeded weights, B=256, device
+    tiling, the exact K=32 graph) in bf16 and in f32: images/s and tiles/s of
+    the extraction, K5's launches (12 a batch, all of the run's type); the
+    saved index loaded back through the loader on the card, 4 `plain` rounds
+    (K1 every round) and 4 `knn_prop2` rounds over the built graph
+    (`jacobi_step` every propagating round); a coarse index derived and
+    loaded. Returns the records and each path's launches."""
+    import torch
+
+    from seesaw_tpu_torch import GlobalDataManager
+    from seesaw_tpu_torch.indices.coarse import CoarseIndex
+    from seesaw_tpu_torch.indices.loader import index_cache
+    from seesaw_tpu_torch.ingest.pipeline import (create_coarse_index,
+                                                  create_multiscale_index,
+                                                  run_multiscale_extraction)
+    from seesaw_tpu_torch.knn_graph import KNNGraph
+    from seesaw_tpu_torch.loops.graph_based import get_weights_from_index
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.ops import attention as A
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops import spmv
+    from seesaw_tpu_torch.utils import rounds as R
+
+    root = ROOT / "build" / "seesaw_tpu_torch" / "ingest_root"
+    shutil.rmtree(root, ignore_errors=True)
+    ds = GlobalDataManager(str(root)).create_dataset("frames", image_src=str(paths[0].parent))
+    n_tiles = INGEST_IMAGES * INGEST_TILES
+    n_batches = -(-n_tiles // INGEST_BATCH)
+    records, launches, vectors = {}, {}, {}
+    for dtype in ("bfloat16", "float32"):
+        emb = ClipEmbedding("vit-b32", device=dev, params=clip_params, dtype=getattr(torch, dtype))
+        warm = SimpleNamespace(dbidxs=ds.dbidxs[:16], file_path=ds.file_path)
+        run_multiscale_extraction(warm, emb, batch_size=INGEST_BATCH, tiling="device")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()  # count only this run's launches
+        t0 = time.perf_counter()
+        v, dbidx, zoom, boxes = run_multiscale_extraction(ds, emb, batch_size=INGEST_BATCH,
+                                                          tiling="device")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = dict(A.pair_attention.launches_by_dtype)
+        if launched[dtype] != TOWER_LAYERS * n_batches or sum(launched.values()) != launched[dtype]:
+            raise AssertionError(f"ingest {dtype}: K5 launches {launched}, not "
+                                 f"{TOWER_LAYERS} x {n_batches} batches of {dtype}")
+        if v.shape != (n_tiles, 512) or not np.isfinite(v).all():
+            raise AssertionError(f"ingest {dtype}: vectors {v.shape} or non-finite values")
+        if not (np.all(np.diff(dbidx) >= 0) and np.bincount(dbidx).tolist()
+                == [INGEST_TILES] * INGEST_IMAGES):
+            raise AssertionError(f"ingest {dtype}: not {INGEST_TILES} tiles a frame by dbidx")
+        np.testing.assert_allclose(np.linalg.norm(v, axis=1), 1.0, atol=1e-5)
+        vectors[dtype] = v
+        launches[dtype] = launched[dtype]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        trace = traced(lambda: run_multiscale_extraction(ds, emb, batch_size=INGEST_BATCH,
+                                                         tiling="device"))
+        t0 = time.perf_counter()
+        idx = create_multiscale_index(ds, f"ingest_{dtype}", "clip-vit-b32", device=dev,
+                                      batch_size=INGEST_BATCH, force=True, tiling="device",
+                                      build_knn_graph=INGEST_GRAPH_K, embedding=emb)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rec = dict(images_per_s=INGEST_IMAGES / secs, tiles_per_s=n_tiles / secs,
+                   extraction_s=secs, index_and_graph_build_s=build_s,
+                   k5_launches=launched[dtype], batches=n_batches, peak_gb=peak, **trace)
+        records[dtype] = rec
+        log(f"[{card}] ingest 10b {dtype}: {INGEST_IMAGES} frames 1280x720 -> {n_tiles} tiles, "
+            f"device tiling, B={INGEST_BATCH}: images_per_s={rec['images_per_s']!r} "
+            f"tiles_per_s={rec['tiles_per_s']!r} extraction_s={secs!r} K5 launches="
+            f"{launched[dtype]} ({TOWER_LAYERS} x {n_batches} batches); "
+            f"create_multiscale_index with the K={INGEST_GRAPH_K} graph s={build_s!r}; "
+            f"peak device memory GB={peak!r}; traced extraction: wall_ms="
+            f"{trace['traced_wall_ms']!r} device busy_ms={trace['traced_busy_ms']!r} "
+            f"kernels by device ms {trace['traced_kernels']}")
+        del emb, idx
+        torch.cuda.empty_cache()
+    cos = float((vectors["bfloat16"] * vectors["float32"]).sum(axis=1).min())
+    if not cos > 0.9:
+        raise AssertionError(f"ingest: bf16 and f32 tile vectors part (min cosine {cos!r})")
+
+    # the saved bf16 index, loaded back from disk through the loader
+    index_cache.invalidate_prefix(ds.index_path("ingest_bfloat16"))
+    idx = ds.load_index("ingest_bfloat16", device=dev)
+    if idx.meta.n_vectors != n_tiles or idx.n_frames != INGEST_IMAGES:
+        raise AssertionError("the loaded index lost rows")
+    graph = KNNGraph.from_file(idx.get_knng_path(""))
+    if graph.k != INGEST_GRAPH_K or graph.nvecs != n_tiles:
+        raise AssertionError(f"graph {graph.nvecs} x {graph.k}")
+    fs.fused_frame_max.launches = spmv.knn_spmv.launches = spmv.jacobi_step.launches = 0
+    next_ms, round_ms, _ = R.drive_session(
+        idx, R.session_params("plain", batch_size=BATCH, shortlist_size=SHORTLIST), 4,
+        np.random.default_rng(0), text="a car at a crossing at night")
+    launches["fused_frame_max"] = fs.fused_frame_max.launches
+    weights = get_weights_from_index(idx, dict(knn_path="", knn_k=INGEST_GRAPH_K, edist=0.1))
+    out = R.drive_knnprop_rounds(idx, R.knnprop_ranker(weights, dev), 4, seed=0,
+                                 batch_size=BATCH, shortlist_size=SHORTLIST)
+    torch.cuda.synchronize()
+    launches["jacobi_step"] = spmv.jacobi_step.launches
+    if launches["fused_frame_max"] < 4 or not any(out["propagated"]) or not launches["jacobi_step"]:
+        raise AssertionError(f"rounds on the built index: launches {launches}, "
+                             f"propagated {out['propagated']}")
+    log(f"[{card}] ingest 10b: the saved bf16 index and its {n_tiles}x{INGEST_GRAPH_K} graph "
+        f"loaded on the card: plain rounds next_ms={next_ms} round_ms={round_ms}, "
+        f"fused_frame_max launches={launches['fused_frame_max']}; knn_prop2 rounds "
+        f"round_ms={out['round_ms']} propagated={out['propagated']} jacobi_iters="
+        f"{out['iters']} jacobi_step launches={launches['jacobi_step']}")
+    coarse = create_coarse_index(ds, "ingest_coarse", from_index="ingest_bfloat16",
+                                 device=dev, force=True)
+    index_cache.invalidate_prefix(ds.index_path("ingest_coarse"))
+    coarse = ds.load_index("ingest_coarse", device=dev)
+    res = coarse.query(vector=coarse.vectors[7], topk=3)
+    if not isinstance(coarse, CoarseIndex) or coarse.vectors.shape != (INGEST_IMAGES, 512) \
+            or int(res["dbidxs"][0]) != int(coarse.meta.frame_dbidx[7]):
+        raise AssertionError(f"coarse index: {type(coarse).__name__} {coarse.vectors.shape} "
+                             f"top {res['dbidxs']}")
+    log(f"ingest 10b: coarse index {coarse.vectors.shape} derived, loaded and queried on "
+        f"the card; bf16 vs f32 tile vectors min cosine={cos!r}")
+    del idx, coarse
+    shutil.rmtree(root, ignore_errors=True)
+    return records, launches
+
+
+def knn_build_at_scale(dev, gen, card):
+    """Phase 10c: `exact_knn` over KNN_SCALE_N x 512 clustered unit vectors
+    made on the card, K=32, TF32 off: seconds and peak memory; 512 random
+    rows held against an f64 brute force on the card."""
+    import torch
+
+    from seesaw_tpu_torch.ops.knn import assert_knn_close, exact_knn
+
+    V = clustered_unit_rows(KNN_SCALE_N, 512, KNN_SCALE_CLUSTERS, gen, dev)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the kNN build must run with TF32 off")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids, dist = exact_knn(V, KNN_SCALE_K, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows = torch.randperm(KNN_SCALE_N, generator=gen, device=dev)[:KNN_SCALE_CHECK]
+    S = V[rows].double() @ V.double().T
+    S[torch.arange(KNN_SCALE_CHECK, device=dev), rows] = float("-inf")
+    top_s, top_i = torch.topk(S, KNN_SCALE_K, dim=1)  # no ties: no duplicate rows
+    del S
+    r = rows.cpu().numpy()
+    out = assert_knn_close(ids[r], dist[r], top_i.cpu().numpy(),
+                           (1.0 - top_s).clamp_min(0.0).cpu().numpy(), KNN_TOL)
+    flops = 2.0 * KNN_SCALE_N * KNN_SCALE_N * 512
+    rec = dict(n=KNN_SCALE_N, d=512, k=KNN_SCALE_K, seconds=secs, peak_gb=peak,
+               matmul_tflop=flops / 1e12, tflops_per_s=flops / secs / 1e12,
+               max_dist_err_vs_f64=out["max_dist_err"],
+               **traced(lambda: exact_knn(V[:KNN_PROFILE_N], KNN_SCALE_K, device=dev)))
+    log(f"[{card}] knn build 10c: {KNN_SCALE_N}x512 K={KNN_SCALE_K} f32 (TF32 off): "
+        f"seconds={secs!r} ({rec['tflops_per_s']!r} TFLOP/s of the {rec['matmul_tflop']!r} "
+        f"TFLOP of products); peak device memory GB={peak!r}; {KNN_SCALE_CHECK} rows vs f64 "
+        f"brute force max_dist_err={out['max_dist_err']!r} (tol {KNN_TOL}), "
+        f"{out['ids_compared']} places held outside near-ties; traced at "
+        f"{KNN_PROFILE_N} rows: wall_ms={rec['traced_wall_ms']!r} device busy_ms="
+        f"{rec['traced_busy_ms']!r} kernels by device ms {rec['traced_kernels']}")
+    return rec
+
+
+def traced(run) -> dict:
+    """`run()` under torch.profiler: host-clock ms ending in a synchronize,
+    the device's busy ms (summed kernel and copy durations, from every
+    thread's launches) and the kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"traced_wall_ms": wall, "traced_busy_ms": sum(by_name.values()),
+            "traced_kernels": [(name[:80], ms) for name, ms in top]}
+
+
 def main() -> int:
     import torch
 
@@ -1613,6 +1982,16 @@ def main() -> int:
                                                                card)
     check_textual_cuda_vs_cpu()
     torch.cuda.synchronize()
+    # phase 10: the offline build
+    frames = write_jpegs(ROOT / "build" / "seesaw_tpu_torch" / "ingest_frames", INGEST_IMAGES,
+                         seed=0)
+    ingest_check = check_ingest_cuda_vs_cpu(dev, clip_params, frames)
+    stages = ingest_stage_rates(dev, clip_params, frames)
+    log(f"[{card}] ingest stages alone (480 frames 1280x720; encode B={INGEST_BATCH}): {stages}")
+    ingest, ingest_launches = ingest_path(dev, card, clip_params, frames)
+    shutil.rmtree(frames[0].parent, ignore_errors=True)
+    knn_scale = knn_build_at_scale(dev, gen, card)
+    torch.cuda.synchronize()
     bad = [m for m in sys.modules
            if m in ("jax", "flax", "optax") or m == "seesaw_tpu" or m.startswith("seesaw_tpu.")]
     if bad:
@@ -1629,6 +2008,10 @@ def main() -> int:
               "library_device_ms")
     f32_fwd, bf16_fwd = ([r for r in attn if r["dtype"] == t] for t in ("float32", "bfloat16"))
     f32_bwd, bf16_bwd = ([r for r in bwd if r["dtype"] == t] for t in ("float32", "bfloat16"))
+    # phase 10's figures that are no kernel's: each ingest stage alone, the
+    # card-vs-CPU tiles, vectors and kNN, and the 1M-row kNN build
+    log(json.dumps({"offline_build": {"ingest_stages": stages, "ingest_check": ingest_check,
+                                      "knn_build_1M": knn_scale}}))
     log(json.dumps({"kernels": [{
         "name": "fused_frame_max", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/fused_frame_max.cu",
@@ -1637,7 +2020,8 @@ def main() -> int:
         # phase 5 (the main path); 9a's multi_reg sessions; 9b's 10M multi_reg rounds
         "launches_by_path": {"main_path": launches,
                              "feedback_sessions": feedback_launches["fused_frame_max"],
-                             "multi_reg_10M": multireg["launches"]},
+                             "multi_reg_10M": multireg["launches"],
+                             "ingest_index_rounds": ingest_launches["fused_frame_max"]},
         "max_abs_err": worst,
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
@@ -1650,7 +2034,8 @@ def main() -> int:
         "launches": sum(knn_launches.values()), "launches_by_entry": knn_launches,
         # phase 9a's sessions (pseudo_lr's refines propagate)
         "launches_by_path": {"knn_prop2_10M": sum(knn_launches.values()),
-                             "feedback_sessions": feedback_launches["jacobi_step"]},
+                             "feedback_sessions": feedback_launches["jacobi_step"],
+                             "ingest_graph_rounds": ingest_launches["jacobi_step"]},
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
         "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],
@@ -1676,12 +2061,14 @@ def main() -> int:
         "launches": attn_launches,
         "launches_by_path": {"text_query_sessions": attn_launches,
                              "vision_encode": vision_launches["float32"],
-                             "finetune": ft_fwd_launches["float32"]},
+                             "finetune": ft_fwd_launches["float32"],
+                             "ingest": ingest_launches["float32"]},
         "max_abs_err": max(r["max_abs_err"] for r in f32_fwd),
         # at the main path's shape (the text query: B=1, L=77, W=512, causal)
         **{k: text_query[k] for k in timing},
         "text_encode_p50_ms": text_p50,
         "cases": f32_fwd, "vision_vit_b32": vision,
+        "ingest_vit_b32": ingest["float32"],
     }, {
         "name": "pair_attention_bf16", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/pair_attention_bf16.cu",
@@ -1690,12 +2077,13 @@ def main() -> int:
         # bf16 vision forwards of 7d
         "launches": ft_fwd_launches["bfloat16"],
         "launches_by_path": {"vision_encode": vision_launches["bfloat16"],
-                             "finetune": ft_fwd_launches["bfloat16"]},
+                             "finetune": ft_fwd_launches["bfloat16"],
+                             "ingest": ingest_launches["bfloat16"]},
         "max_abs_err": max(r["max_abs_err"] for r in bf16_fwd),
         "max_ulps": max(r["max_ulps"] for r in bf16_fwd),
         "share_differing": max(r["share_differing"] for r in bf16_fwd),
         **{k: vit_fwd16[k] for k in timing},
-        "cases": bf16_fwd,
+        "cases": bf16_fwd, "ingest_vit_b32": ingest["bfloat16"],
     }, {
         "name": "pair_attention_bwd", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/pair_attention.cu",

@@ -15,11 +15,14 @@ from pathlib import Path
 import torch
 
 from ..runtime.cache import LocalCache
+from .coarse import CoarseIndex
 from .multiscale import MultiscaleIndex
 
 CONSTRUCTORS = {
     "seesaw_tpu.indices.multiscale.MultiscaleIndex": MultiscaleIndex,
     "seesaw_tpu_torch.indices.multiscale.MultiscaleIndex": MultiscaleIndex,
+    "seesaw_tpu.indices.coarse.CoarseIndex": CoarseIndex,
+    "seesaw_tpu_torch.indices.coarse.CoarseIndex": CoarseIndex,
 }
 
 index_cache = LocalCache()

@@ -12,8 +12,10 @@ Graph loops rank externally produced per-vector scores with
 `rank_by_scores`; a staged KnnProp2 round runs fused inside it
 (`_rank_deferred_propagation`).
 
-Left out here (see ROADMAP.md): the mesh-sharded index, request coalescing
-and `save`. Dropped because
+`save` writes the JAX package's on-disk format, with the JAX class in
+`info.json`'s constructor string, so an index saved here loads in both
+packages. Left out here (see ROADMAP.md): the mesh-sharded index and request
+coalescing. Dropped because
 the GPU does not need them: the 1024-frame padding of the Pallas block
 granularity, the routing of int8 around the kernel, and the power-of-two row
 buckets that bounded jit recompiles.
@@ -675,6 +677,31 @@ class MultiscaleIndex(AccessMethod):
     def get_knng_path(self, name: str = "") -> str:
         assert self.path is not None
         return str(Path(self.path) / "knn_graph" / name)
+
+    # -- persistence ---------------------------------------------------------
+    def save(self, index_path: str, model_name: str = ""):
+        """Write `vectors.npz` (the vectors in exact row order, from the host
+        mirror or gathered from the device, and the tile metadata) and
+        `info.json` naming the JAX class, which both packages' loaders map;
+        drop this package's cached loads of the path."""
+        from .loader import index_cache
+
+        index_cache.invalidate_prefix(str(Path(index_path)))
+        p = Path(index_path)
+        p.mkdir(parents=True, exist_ok=True)
+        np.savez(
+            p / "vectors.npz",
+            vectors=self.vectors_for_rows(np.arange(self.meta.n_vectors)),
+            dbidx=self.meta.dbidx,
+            zoom_level=self.meta.zoom_level,
+            boxes=self.meta.boxes,
+        )
+        info = {
+            "constructor": "seesaw_tpu.indices.multiscale.MultiscaleIndex",
+            "model": model_name,
+            "excluded": self.excluded.to_array().tolist() if len(self.excluded) else [],
+        }
+        (p / "info.json").write_text(json.dumps(info))
 
     # -- loading -------------------------------------------------------------
     @staticmethod

@@ -12,8 +12,8 @@ packages build the same weights from the same `forward.parquet`:
 - persistence: `forward.parquet` with (src_vertex, dst_vertex, distance,
   dst_rank) rows including rank-0 self edges, the reference's format.
 
-The exact kNN build (`seesaw_tpu/ops/knn.py`) is not ported yet; graphs are
-read from disk or made by the caller.
+`KNNGraph.build` runs the exact blocked build of `ops.knn` on an explicit
+device; `factor_neighbors` is the JAX package's numpy as it is.
 """
 from __future__ import annotations
 
@@ -41,6 +41,16 @@ def rbf_kernel(edist: float) -> Callable[[np.ndarray], np.ndarray]:
     return kernel
 
 
+def knn_kernel(edist: float = 2.1) -> Callable[[np.ndarray], np.ndarray]:
+    """Unit weight for every edge within distance edist."""
+    assert edist > 0
+
+    def kernel(arr: np.ndarray) -> np.ndarray:
+        return (arr <= edist).astype(np.float32)
+
+    return kernel
+
+
 class KNNGraph:
     """Forward kNN edges in fixed-degree form: dst (N,K), dist (N,K),
     ascending by distance per row (self-edges excluded)."""
@@ -58,11 +68,33 @@ class KNNGraph:
     def k(self) -> int:
         return self.dst.shape[1]
 
+    @staticmethod
+    def build(vectors, n_neighbors: int, block_size: int | None = None, *, device,
+              mesh=None) -> "KNNGraph":
+        """Exact kNN graph of `vectors` (numpy or a tensor) built on `device`
+        (`ops.knn.exact_knn`). A multi-device mesh build is not ported."""
+        if mesh is not None:
+            raise NotImplementedError("the mesh-sharded kNN build is not ported")
+        from .ops.knn import exact_knn
+
+        return KNNGraph(*exact_knn(vectors, n_neighbors, block_size, device=device))
+
     def restrict_k(self, *, k: int) -> "KNNGraph":
         assert k <= self.k, f"graph built with k={self.k}, requested {k}"
         if k == self.k:
             return self
         return KNNGraph(self.dst[:, :k], self.dist[:, :k])
+
+    def reverse_adjacency(self) -> tuple[np.ndarray, np.ndarray]:
+        """CSR-ish reverse lookup: (indptr (N+1,), src (E,)) where
+        src[indptr[v]:indptr[v+1]] are vertices whose kNN list contains v."""
+        flat_dst = self.dst.reshape(-1)
+        order = np.argsort(flat_dst, kind="stable")
+        srcs = (order // self.k).astype(np.int32)
+        counts = np.bincount(flat_dst, minlength=self.nvecs)
+        indptr = np.zeros(self.nvecs + 1, dtype=np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        return indptr, srcs
 
     def save(self, path: str | Path):
         import pandas as pd
@@ -146,6 +178,14 @@ class SymmetricWeights:
             self._device_cache[key] = out
         return out
 
+    def laplacian_quadratic(self, x: np.ndarray) -> float:
+        """x^T L x = 1/2 sum_ij w_ij (x_i - x_j)^2 (each edge once in each
+        direction, matching L = D - W)."""
+        xi = x[:, None]
+        xj = np.where(self.nbr >= 0, x[np.clip(self.nbr, 0, None)], 0.0)
+        sq = self.w * (xi - xj) ** 2
+        return float(0.5 * sq.sum())
+
     def apply(self, x: np.ndarray) -> np.ndarray:
         """W @ x for vector or matrix x ((N,) or (N, D))."""
         idx = np.clip(self.nbr, 0, None)
@@ -189,6 +229,49 @@ class SymmetricWeights:
         if normalize_by_trace:
             acc = acc / max(float(degree.sum()), 1e-30)
         return acc
+
+
+def factor_neighbors(
+    graph: KNNGraph, dbidx: np.ndarray, k_intra: int, k_inter: int = 1
+) -> KNNGraph:
+    """Diversified neighbor lists: per vertex keep the k_inter closest
+    vectors of each DISTINCT other frame plus up to k_intra same-frame
+    neighbors, so that one image's tiles cannot monopolize propagation.
+    Returns a padded fixed-degree graph (padding = self-edges with distance
+    0, dropped by symmetrize_weights)."""
+    N, K = graph.dst.shape
+    dbidx = np.asarray(dbidx)
+    src_frame = dbidx[np.arange(N)][:, None]  # (N, 1)
+    dst_frame = dbidx[graph.dst]  # (N, K)
+
+    intra = dst_frame == src_frame
+    # rank among same-frame neighbors (rows already ascending by distance)
+    intra_rank = np.cumsum(intra, axis=1)
+    keep_intra = intra & (intra_rank <= k_intra)
+
+    # inter: rank within each (row, dst_frame) group by order of appearance,
+    # over row chunks: occurrences before column c via a (chunk, K, K)
+    # equality mask against earlier columns
+    keep_inter = np.zeros_like(intra)
+    tril = np.tril(np.ones((K, K), dtype=bool), k=-1)  # earlier columns
+    chunk = max(1, 8_000_000 // (K * K))  # bound the (chunk, K, K) temp
+    for lo in range(0, N, chunk):
+        hi = min(lo + chunk, N)
+        f = dst_frame[lo:hi]
+        same = f[:, :, None] == f[:, None, :]  # (c, K, K) frame equality
+        prior = (same & tril[None]).sum(axis=2)  # occurrences before col
+        keep_inter[lo:hi] = (~intra[lo:hi]) & (prior < k_inter)
+
+    keep = keep_intra | keep_inter
+    counts = keep.sum(axis=1)
+    Kp = max(int(counts.max(initial=1)), 1)
+    new_dst = np.repeat(np.arange(N, dtype=np.int32)[:, None], Kp, axis=1)  # self-pad
+    new_dist = np.zeros((N, Kp), dtype=np.float32)
+    rows, cols = np.nonzero(keep)
+    slots = (np.cumsum(keep, axis=1) - 1)[rows, cols]
+    new_dst[rows, slots] = graph.dst[rows, cols]
+    new_dist[rows, slots] = graph.dist[rows, cols]
+    return KNNGraph(new_dst, new_dist)
 
 
 def forward_weights(

@@ -1,9 +1,10 @@
 """Label-propagation ranking over the kNN graph.
 
-Counterpart of `seesaw_tpu/loops/knn_methods.py` (`SimpleKNNRanker` waits
-for the active-search slice): normalize and sigmoid-calibrate the base
-scores into a prior, and propagate the user's labels over the graph after
-each batch that holds a negative.
+Counterpart of `seesaw_tpu/loops/knn_methods.py`: normalize and
+sigmoid-calibrate the base scores into a prior, and propagate the user's
+labels over the graph after each batch that holds a negative.
+`SimpleKNNRanker` (the neighbour-vote estimate over the reverse adjacency)
+is the JAX package's numpy as it is.
 
 The port's ranker always runs in the JAX package's device mode: the prior,
 the labels and the last scores live on the ranker's device, each feedback
@@ -20,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..knn_graph import SymmetricWeights
+from ..knn_graph import KNNGraph, SymmetricWeights
 from ..label_propagation import LabelPropagation, check_prior_bounds
 from ..ops.propagation import DeferredPropagation, PropagationResult
 
@@ -43,6 +44,65 @@ def normalize_scores(scores, epsilon: float):
         return full(scores, 0.5)
     x = (scores - lo) / gap
     return x * (1 - 2 * epsilon) + epsilon
+
+
+class SimpleKNNRanker:
+    """Each vertex's score is a pseudo-count average of its own prior and the
+    labels of the vertices whose kNN lists name it; labeled vertices score
+    their label. Host numpy."""
+
+    def __init__(self, knng: KNNGraph, init_scores: Optional[np.ndarray] = None):
+        self.knng = knng
+        n = knng.nvecs
+        if init_scores is None:
+            self.init_numerators = np.ones(n) * 0.1
+        else:
+            self.set_base_scores(init_scores)
+        self.pscount = 1.0
+        self.numerators = np.zeros(n)
+        self.denominators = np.zeros(n)
+        self.labels = np.zeros(n)
+        self.is_labeled = np.zeros(n)
+        self._rev_indptr, self._rev_src = knng.reverse_adjacency()
+
+    def set_base_scores(self, scores: np.ndarray):
+        assert scores.shape[0] == self.knng.nvecs
+        self.init_numerators = sigmoid(2 * scores)
+
+    def current_scores(self) -> np.ndarray:
+        num = self.pscount * self.init_numerators + self.numerators
+        denom = self.pscount + self.denominators
+        estimates = num / denom
+        return self.labels * self.is_labeled + estimates * (1 - self.is_labeled)
+
+    def update(self, idxs, labels):
+        for idx, label in zip(idxs, labels):
+            idx, label = int(idx), float(label)
+            assert np.isclose(label, 0) or np.isclose(label, 1)
+            if self.is_labeled[idx] > 0:
+                delta_num = label - self.labels[idx]
+                delta_denom = 0
+            else:
+                delta_num = label
+                delta_denom = 1
+            self.labels[idx] = label
+            self.is_labeled[idx] = 1
+            # vertices that list idx among their neighbors
+            rev = self._rev_src[self._rev_indptr[idx]: self._rev_indptr[idx + 1]]
+            self.numerators[rev] += delta_num
+            self.denominators[rev] += delta_denom
+
+    def top_k(self, k: Optional[int], unlabeled_only: bool = True):
+        if unlabeled_only:
+            subset = np.where(self.is_labeled < 1)[0]
+        else:
+            subset = np.arange(self.knng.nvecs)
+        raw = self.current_scores()
+        order = np.argsort(-raw[subset])
+        if k is not None:
+            order = order[:k]
+        top = subset[order]
+        return top, raw[top]
 
 
 class BaseLabelPropagationRanker:

@@ -7,14 +7,19 @@ the CLIP mean and std.
 - `preprocess_image`: the PIL host path for one-off images (serving).
 - `normalize_pixels`: the same normalization on a tensor of [0, 1] pixels,
   on its device.
-
-The batched on-device resize (`resize_batch_jax`) feeds only the ingest
-pipeline and comes with it.
+- `resize_batch`: the batched bicubic resize of `resize_batch_jax`, on the
+  tensor's device. `F.interpolate` with `antialias=True` computes
+  `jax.image.resize(..., antialias=True)`'s function up and down (a
+  scale-widened Keys kernel with a = -0.5 when shrinking, the plain one when
+  enlarging); without antialias torch's bicubic uses a = -0.75 and does not
+  widen the kernel, and parts from it by up to 0.7 shrinking and 0.11
+  enlarging (tests/test_torch_ingest.py::test_antialias_is_what_matches_jax).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .clip import CLIP_MEAN, CLIP_STD
 
@@ -46,3 +51,12 @@ def normalize_pixels(pixels01: torch.Tensor) -> torch.Tensor:
     mean = torch.from_numpy(CLIP_MEAN).to(pixels01.device)
     std = torch.from_numpy(CLIP_STD).to(pixels01.device)
     return (pixels01 - mean) / std
+
+
+def resize_batch(images: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Batched bicubic resize on the tensor's device: (B, H, W, C) ->
+    (B, h, w, C) float32."""
+    x = images.to(torch.float32).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=tuple(out_hw), mode="bicubic", antialias=True,
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1).contiguous()

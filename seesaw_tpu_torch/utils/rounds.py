@@ -67,6 +67,7 @@ _ZOOM = np.array([1, 1, 1, 1, 2, 2, 2, 3], dtype=np.int32)
 # cached under the index's path by `multireg_xlx`)
 MULTIREG_GRAPH_K = 32
 LOOP_OPTIONS = {
+    "plain": {},
     "rocchio_update": dict(rocchio_alpha=1.0, rocchio_beta=0.7, rocchio_gamma=0.3),
     "log_reg2": dict(class_weights="balanced", scale="centered", reg_lambda=5.0,
                      fit_intercept=False, max_iter=50),

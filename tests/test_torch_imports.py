@@ -95,3 +95,44 @@ def test_training_modules_import_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_offline_build_imports_no_jax(tmp_path):
+    """The offline build (ingest, the kNN build, the coarse index, the JPEG
+    pool, the converter) and its `python -m` entry points leave jax, flax,
+    optax and the JAX package out of `sys.modules`."""
+    code = textwrap.dedent("""
+        import runpy, sys
+        import numpy as np
+        import seesaw_tpu_torch.ingest as ingest
+        from seesaw_tpu_torch.indices.coarse import CoarseIndex
+        from seesaw_tpu_torch.ingest import device_tiling, pipeline
+        from seesaw_tpu_torch.knn_graph import KNNGraph, factor_neighbors
+        from seesaw_tpu_torch.models import convert_checkpoint
+        from seesaw_tpu_torch.ops.knn import exact_knn
+        from seesaw_tpu_torch.runtime import jpeg_decode
+        X = np.random.default_rng(0).normal(size=(50, 8)).astype(np.float32)
+        g = KNNGraph.build(X, 4, device="cpu")
+        factor_neighbors(g, np.arange(50) // 5, k_intra=1)
+        plan, tiles = device_tiling.tile_on_device(
+            np.zeros((40, 50, 3), np.uint8), 32, 0.5, 32, device="cpu")
+        assert tiles.shape == (plan.n_tiles, 32, 32, 3)
+        CoarseIndex(device="cpu", vectors=X[:5], dbidx=np.arange(5))
+        for mod in ("seesaw_tpu_torch.ingest.build_index",
+                    "seesaw_tpu_torch.ingest.make_knn_graph",
+                    "seesaw_tpu_torch.models.convert_checkpoint"):
+            sys.argv = [mod, "--help"]
+            try:
+                runpy.run_module(mod, run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, e.code
+        bad = [m for m in sys.modules
+               if m in ("jax", "flax", "optax") or m == "seesaw_tpu"
+               or m.startswith("seesaw_tpu.")]
+        assert not bad, bad
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
