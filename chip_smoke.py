@@ -130,9 +130,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       (bench.py:1422-1428 at d = 512), K=32, TF32 off: seconds, peak
       memory, 512 rows against an f64 brute force on the card.
 
+11. concurrent serving (`seesaw_tpu_torch.web`, the batch programs of
+    `ops.frame_scoring`); run right after phase 6, over its index first:
+   a. the batch of 16 queries (`bench.py:446-523`: 10M x 512, shortlist
+      50, top-k 10) in int8 with row scales, int8 with frame scales and
+      bf16, each query with its own mask: ids equal and scores within rtol
+      1e-5 of 16 solo K1 queries and of the plain batch; CUDA-event ms of a
+      dispatch in chains of 8 (each session excludes its own top hit),
+      device ms and top kernels under torch.profiler, queries/s beside the
+      16 solo queries, the bound by bytes (matrix, scales, (N, 16) scores),
+      peak memory;
+   b. 16 threads of simulated users, 10 rounds, over the bf16 index: 16
+      `plain`, and 8 `plain` + 8 `rocchio_update`, each through a
+      `CoalescingIndex` (3 ms) and without: p50 `next` (per session and in
+      all), clicks/s, the coalescer's stats, K1 launches (every query of an
+      uncoalesced run, every group of one and deferred round of a coalesced
+      one), no repeated dbidx; then a traced coalesced run (idle share);
+   c. two port servers on a root like phase 4's, one on the card and one
+      on the CPU: the same HTTP client (`/user_session`, `/text`, `/next` x
+      3 with boxes, `/getstate`, `/explore`, `/session_end`) for `plain`
+      and `knn_prop2` gets equal dbidxs round by round; then 3 concurrent
+      sessions of a `coalesce_ms: 25` yaml variant on the card's server:
+      no error, no repeat; p50 `/next` over HTTP.
+
 The line before the last is the kernel record (JSON); the last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
-package beside this script, it exits non-zero and prints no result.
+{"ok": true, "device": {...}}; phase 10's and phase 11's figures that
+are no kernel's print on their own JSON lines before the kernel record.
+The check that no `seesaw_tpu` module, jax, flax or optax was imported
+runs after every phase (the servers' threads import lazily). Without a
+CUDA device, or without the package beside this script, it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -1891,6 +1918,362 @@ def knn_build_at_scale(dev, gen, card):
     return rec
 
 
+# -- phase 11 ----------------------------------------------------------------
+# bench.py bench_multi_query: Q = 16 sessions, 8 chained dispatches, the best
+# of 3 chains; shortlist 50 and top-k 10 (bench.py SHORTLIST, TOPK)
+Q_BATCH, CHAIN, TOPK = 16, 8, 10
+BATCH_CELLS = (("bfloat16", "row"), ("int8", "row"), ("int8", "frame"))
+EXCLUDED_PER_SESSION = 4096  # random frames in each session's mask, and its own top hit
+# batch vs solo and vs plain: ids equal, scores f32 sums of 512 products in
+# another order (int8: exact)
+BATCH_TOL = dict(rtol=1e-5, atol=0.0)
+SESSIONS, SESSION_ROUNDS, WINDOW_MS = 16, 10, 3.0
+
+
+def batch_fn(idx, plain=False):
+    """The index's batch program (frame-scale for int8 with per-frame
+    scales), over (qs (Q, D), excluded (Q, F))."""
+    from seesaw_tpu_torch.ops import frame_scoring as fsc
+
+    rank = dict(shortlist_size=SHORTLIST, topk=TOPK, max_zoom=idx._max_zoom, plain=plain)
+    arrays = (idx._V, idx._valid, idx._boxes, idx._zoom)
+    if idx._frame_scale is not None:
+        return lambda qs, ex: fsc.query_program_batch_framescale(
+            *arrays, qs, ex, idx._frame_scale, **rank)
+    return lambda qs, ex: fsc.query_program_batch(*arrays, qs, ex, idx._row_scale, **rank)
+
+
+def solo_fn(idx):
+    """One solo query through K1 (`query_program_fused`)."""
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+
+    rank = dict(shortlist_size=SHORTLIST, topk=TOPK, max_zoom=idx._max_zoom)
+    return lambda q, ex: fs.query_program_fused(idx._V, idx._valid, idx._boxes, idx._zoom,
+                                                q, ex, idx._row_scale, **rank)
+
+
+def check_batch(got, want, what) -> float:
+    """Every query's valid ids equal and scores within BATCH_TOL; returns the
+    largest score difference."""
+    import torch
+
+    worst = 0.0
+    for i in range(got.frame_ids.shape[0]):
+        n = int(want.n_valid[i])
+        if int(got.n_valid[i]) != n or not torch.equal(got.frame_ids[i], want.frame_ids[i]):
+            raise AssertionError(f"{what}: query {i} ids {got.frame_ids[i].tolist()} != "
+                                 f"{want.frame_ids[i].tolist()}")
+        for a, b in ((got.frame_scores, want.frame_scores), (got.act_scores, want.act_scores)):
+            torch.testing.assert_close(a[i, :n], b[i, :n], **BATCH_TOL)
+            worst = max(worst, float((a[i, :n] - b[i, :n]).abs().max()))
+    return worst
+
+
+def batch_cell(idx, name, dev, gen, card) -> dict:
+    """Phase 11a for one storage: the batch of 16 queries, each with its own
+    mask, against 16 solo K1 queries and against the plain batch; then CUDA
+    events and device ms of a dispatch in chains of CHAIN, in which each
+    session excludes its own top hit, beside the 16 solo queries; the bound;
+    peak memory."""
+    import torch
+
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops.frame_scoring import QueryResult
+    from seesaw_tpu_torch.utils.profiling import cuda_ms
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    F, Q = idx.n_frames, Q_BATCH
+    rng = np.random.default_rng(0)
+    run, plain, solo = batch_fn(idx), batch_fn(idx, plain=True), solo_fn(idx)
+    qs = torch.from_numpy(rng.normal(size=(Q, DIM)).astype(np.float32)).to(dev)
+    rows = torch.arange(Q, device=dev)
+    excl = torch.zeros(Q, F, dtype=torch.bool, device=dev)
+    excl[rows[:, None], torch.randint(0, F, (Q, EXCLUDED_PER_SESSION), device=dev,
+                                      generator=gen)] = True
+    excl[rows, run(qs, excl).frame_ids[:, 0].clamp(min=0)] = True  # each its own top hit
+    got = run(qs, excl)
+    solos = [solo(qs[i], excl[i]) for i in range(Q)]
+    err_solo = check_batch(got, QueryResult(*(torch.stack(f) for f in zip(*solos))),
+                           f"{name} batch vs 16 solo K1 queries")
+    err_plain = check_batch(got, plain(qs, excl), f"{name} batch vs its plain version")
+
+    def chain(qss):
+        ex = excl
+        for qk in qss:
+            r = run(qk, ex)
+            ex = ex.clone()
+            ex[rows, r.frame_ids[:, 0].clamp(min=0)] = True
+        return r
+
+    chains = [torch.from_numpy(rng.normal(size=(CHAIN, Q, DIM)).astype(np.float32)).to(dev)
+              for _ in range(4)]
+    chain(chains[0])  # warm-up
+    events = []
+    for qss in chains[1:]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        chain(qss)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(start.elapsed_time(end) / CHAIN)
+    trace = traced(lambda: chain(chains[1]))  # the device's split of a chain
+    device = trace["traced_busy_ms"] / CHAIN
+    solo_ms = Q * cuda_ms(solo, [(qs[i], excl[i]) for i in range(Q)])
+    k1_ms = Q * cuda_ms(fs.fused_frame_max,
+                        [(idx._V, idx._valid, excl[i], qs[i], idx._row_scale) for i in range(Q)])
+    N = int(idx._V.shape[0])
+    scale_bytes = (F * 4 if idx._frame_scale is not None
+                   else N * 4 if idx._row_scale is not None else 0)
+    n_bytes = N * DIM * idx._V.element_size() + scale_bytes + N * Q * 4
+    bound_ms, bound_by = bound(n_bytes, 2.0 * N * DIM * Q, idx.device_dtype)
+    ms = min(events)
+    rec = {"cell": name, "Q": Q, "rows": N, "dim": DIM, "topk": TOPK,
+           "shortlist": SHORTLIST, "ms_per_dispatch": ms, "ms_per_dispatch_runs": events,
+           "device_ms_per_dispatch": device, "queries_per_s": Q * 1e3 / ms,
+           "solo16_ms": solo_ms, "solo16_k1_only_ms": k1_ms,
+           "solo_queries_per_s": Q * 1e3 / solo_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "max_abs_diff_vs_solo": err_solo,
+           "max_abs_diff_vs_plain": err_plain,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "chain_top_kernels_ms": trace["traced_kernels"]}
+    log(f"[{card}] batch {name}: {json.dumps(rec)}")
+    return rec
+
+
+def concurrent_sessions(idx, card) -> tuple[list, dict]:
+    """Phase 11b: SESSIONS threads, each a simulated user running
+    SESSION_ROUNDS rounds over the 10M bf16 index, coalesced
+    (CoalescingIndex, WINDOW_MS, batches of at most 16) and not, in two
+    mixes; then a coalesced run under torch.profiler.
+    Returns the records and the path's launches of K1 and the Jacobi
+    kernel."""
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops import spmv
+    from seesaw_tpu_torch.utils import rounds as R
+
+    plain, rocchio = (R.session_params(m, batch_size=BATCH, shortlist_size=SHORTLIST)
+                      for m in ("plain", "rocchio_update"))
+    fs.fused_frame_max.launches = spmv.jacobi_step.launches = 0  # this path's launches
+    recs = []
+    for mix, params in (("16 plain", [plain]), ("8 plain + 8 rocchio_update", [plain, rocchio])):
+        for window in (WINDOW_MS, None):
+            before = fs.fused_frame_max.launches
+            out = R.drive_concurrent_sessions(idx, params, SESSIONS, SESSION_ROUNDS,
+                                              coalesce_ms=window)
+            k1 = fs.fused_frame_max.launches - before
+            queries = SESSIONS * SESSION_ROUNDS
+            if window is None and k1 != queries:  # every query a solo scan
+                raise AssertionError(f"{mix} uncoalesced: {k1} K1 launches for {queries} queries")
+            if window is not None:
+                st = out["stats"]
+                if st["batched"] == 0:
+                    raise AssertionError(f"{mix}: nothing coalesced {st}")
+                # deferred Rocchio rounds (1..) pass the coalescer by, solo
+                deferred = (SESSIONS // 2) * (SESSION_ROUNDS - 1) if len(params) > 1 else 0
+                if st["batched"] + st["solo"] + deferred != queries or k1 != st["solo"] + deferred:
+                    raise AssertionError(f"{mix}: stats {st}, K1 launches {k1}")
+            rec = {"mix": mix, "coalesce_ms": window, "sessions": SESSIONS,
+                   "rounds": SESSION_ROUNDS, "p50_next_ms": out["p50_next_ms"],
+                   "p50_next_ms_by_session": [float(np.median(ms[1:])) for ms in out["next_ms"]],
+                   "clicks_per_s": out["clicks_per_s"], "wall_s": out["wall_s"],
+                   "coalescer_stats": out["stats"], "k1_launches": k1}
+            log(f"[{card}] concurrent sessions {mix}, "
+                f"{'coalesced' if window else 'uncoalesced'}: {json.dumps(rec)}")
+            recs.append(rec)
+    # where a coalesced run's time goes: the card's busy share of its wall
+    trace = traced(lambda: R.drive_concurrent_sessions(
+        idx, [plain], SESSIONS, SESSION_ROUNDS, coalesce_ms=WINDOW_MS))
+    trace["idle_share"] = 1.0 - trace["traced_busy_ms"] / trace["traced_wall_ms"]
+    log(f"[{card}] concurrent sessions 16 plain, coalesced, traced: {json.dumps(trace)}")
+    recs.append({"mix": "16 plain", "coalesce_ms": WINDOW_MS, "traced": trace})
+    return recs, {"fused_frame_max": fs.fused_frame_max.launches,
+                  "jacobi_step": spmv.jacobi_step.launches}
+
+
+class HttpClient:
+    """A cookie-carrying client of the session server (the frontend's
+    request shapes); `times` collects each `/next`'s host ms."""
+
+    def __init__(self, base):
+        self.base, self.cookie, self.times = base, None, []
+
+    def post(self, path, body=None):
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, method="POST",
+                                     data=json.dumps(body).encode() if body is not None else b"",
+                                     headers={"Content-Type": "application/json"})
+        if self.cookie:
+            req.add_header("Cookie", f"session_id={self.cookie}")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            sc = r.headers.get("Set-Cookie")
+            if sc and "session_id=" in sc:
+                self.cookie = sc.split("session_id=")[1].split(";")[0]
+            out = json.loads(r.read())
+        if path == "/next":
+            self.times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def get_text(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=300) as r:
+            return r.read().decode()
+
+
+def scripted_client(base, mode, gt, rounds=3):
+    """/user_session, /text, /next x rounds (the simulated user accepts
+    each ground-truth box), /getstate, /explore, /session_end. Returns
+    (dbidxs of each round, the /next ms)."""
+    import urllib.parse
+
+    c = HttpClient(base)
+    c.post(f"/user_session?mode={mode}&dataset=smoke&index=multiscale")
+    state = c.post("/text?key=" + urllib.parse.quote("a dog"))
+    seen = []
+    for _ in range(rounds):
+        batch = state["session"]["gdata"][-1]
+        seen.append([im["dbidx"] for im in batch])
+        for im in batch:
+            b = gt.get(im["dbidx"])
+            im["boxes"] = ([dict(x1=b[0], y1=b[1], x2=b[2], y2=b[3], marked_accepted=True)]
+                           if b is not None else [])
+        state = c.post("/next", {"client_data": state})
+    seen.append([im["dbidx"] for im in state["session"]["gdata"][-1]])
+    if c.post("/getstate")["session"]["gdata"] != state["session"]["gdata"]:
+        raise AssertionError(f"{mode}: /getstate differs from the last /next")
+    page = c.get_text("/explore?dataset=smoke&clusters=4&q=" + urllib.parse.quote("a dog"))
+    if "const D = " not in page or "a dog" not in page:
+        raise AssertionError(f"{mode}: /explore served no map")
+    c.post("/session_end")
+    flat = [i for r in seen for i in r]
+    if len(flat) != len(set(flat)):
+        raise AssertionError(f"{mode}: the session repeated a dbidx {seen}")
+    return seen, c.times
+
+
+def http_servers(card) -> tuple[dict, dict]:
+    """Phase 11c: two servers of the port on a root like phase 4's (its
+    CLIP artifact, so each new `/text` runs K5), one on the card, one on the
+    CPU; the same scripted client against both for `plain` and `knn_prop2`
+    (equal dbidxs round by round); then 3 concurrent sessions with
+    coalesce_ms 25 (a yaml variant) on the card's server. Returns the record
+    and this path's launches of K1, the Jacobi kernel and K5."""
+    import threading
+    import urllib.parse
+
+    import torch
+
+    from seesaw_tpu_torch.ops import attention, spmv
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.web.app import SeesawServer
+    from seesaw_tpu_torch.web.coalesce import CoalescingIndex
+
+    base_dir = ROOT / "build" / "seesaw_tpu_torch"
+    root = base_dir / "web_root"
+    dirs = (root, root.with_name(root.name + "_clip"), base_dir / "web_save")
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    _, gt, _ = write_synthetic_root(root)
+    cfg = root / "serve.yaml"
+    cfg.write_text("shared_session_params:\n  batch_size: 3\n  shortlist_size: 20\n"
+                   "variants:\n  - name: co_plain\n    interactive: plain\n"
+                   "    index_options:\n      coalesce_ms: 25\n")
+    # count only this path's launches
+    fs.fused_frame_max.launches = spmv.jacobi_step.launches = 0
+    attention.reset_launch_counts()
+    apps = {d: SeesawServer(str(root), str(base_dir / "web_save" / d), device=d,
+                            config_path=str(cfg)) for d in ("cuda", "cpu")}
+    httpds = {d: app.serve(host="127.0.0.1", port=0) for d, app in apps.items()}
+    bases = {d: f"http://127.0.0.1:{h.server_address[1]}" for d, h in httpds.items()}
+    rec = {"rounds": {}, "p50_next_http_ms": {}}
+    try:
+        for mode in ("plain", "knn_prop2"):
+            (on_card, card_ms), (on_cpu, _) = (scripted_client(bases[d], mode, gt)
+                                               for d in ("cuda", "cpu"))
+            if on_card != on_cpu:
+                raise AssertionError(f"HTTP {mode}: cuda {on_card} != cpu {on_cpu}")
+            rec["rounds"][mode] = on_card
+            rec["p50_next_http_ms"][mode] = float(np.median(card_ms))
+        clients, states = [], []
+        for _ in range(3):
+            c = HttpClient(bases["cuda"])
+            c.post("/user_session?mode=yaml_co_plain&dataset=smoke&index=multiscale")
+            states.append(c.post("/text?key=" + urllib.parse.quote("a dog")))
+            clients.append(c)
+        sessions = [apps["cuda"].manager.get_session(c.cookie).session for c in clients]
+        if not (isinstance(sessions[0].index, CoalescingIndex)
+                and all(s.index is sessions[0].index for s in sessions)):
+            raise AssertionError("the coalescing sessions do not share one CoalescingIndex")
+        errors, seen = [], [[] for _ in clients]
+
+        def drive(i):
+            try:
+                st = states[i]
+                for _ in range(3):
+                    for im in st["session"]["gdata"][-1]:
+                        seen[i].append(im["dbidx"])
+                        im["boxes"] = []
+                    st = clients[i].post("/next", {"client_data": st})
+            except Exception as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=drive, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"concurrent HTTP sessions failed: {errors}")
+        if any(len(s) != len(set(s)) or len(s) != 9 for s in seen):
+            raise AssertionError(f"concurrent HTTP sessions repeated a dbidx: {seen}")
+        rec["coalesced_sessions"] = {
+            "stats": dict(sessions[0].index._coalescer.stats),
+            "p50_next_http_ms": float(np.median([t for c in clients for t in c.times]))}
+    finally:
+        for h in httpds.values():
+            h.shutdown()
+            h.server_close()
+        torch.cuda.synchronize()
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    launches = {"fused_frame_max": fs.fused_frame_max.launches,
+                "jacobi_step": spmv.jacobi_step.launches,
+                "pair_attention": attention.pair_attention.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"the card's server launched {launches}")
+    rec["launches"] = launches
+    log(f"[{card}] HTTP servers (cuda vs cpu): {json.dumps(rec)}")
+    return rec, launches
+
+
+def serving_path(first_cell, dev, gen, card):
+    """Phase 11 after 11a's first cell (over phase 6's int8 index with row
+    scales): 11a over int8 with frame scales and over bf16, indices made as
+    in phase 5; 11b over the bf16 index; 11c on a small root. Returns
+    (record, launches by path)."""
+    import torch
+
+    from seesaw_tpu_torch.utils import rounds as R
+
+    cells = [first_cell]
+    for dtype, scale, name in (("int8", "frame", "int8 frame scales"),
+                               ("bfloat16", "row", "bfloat16")):
+        torch.cuda.empty_cache()
+        idx = R.device_index(N_VECTORS, DIM, dtype, device=dev, generator=gen,
+                             int8_scale=scale)
+        cells.append(batch_cell(idx, name, dev, gen, card))
+        if dtype == "bfloat16":
+            sessions, session_launches = concurrent_sessions(idx, card)
+        del idx
+    torch.cuda.empty_cache()
+    http, http_launches = http_servers(card)
+    return ({"batch_programs": cells, "concurrent_sessions": sessions, "http": http},
+            {"concurrent_sessions": session_launches, "web_server": http_launches})
+
+
 def traced(run) -> dict:
     """`run()` under torch.profiler: host-clock ms ending in a synchronize,
     the device's busy ms (summed kernel and copy durations, from every
@@ -1960,7 +2343,11 @@ def main() -> int:
     torch.cuda.synchronize()
     knn_launches = knnprop_path(idx, dev, gen, card)
     torch.cuda.synchronize()
+    # phase 11: concurrent serving, over phase 6's index first
+    first_cell = batch_cell(idx, "int8 row scales", dev, gen, card)
     del idx
+    serving, serving_launches = serving_path(first_cell, dev, gen, card)
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
     # phase 9, before the towers' phases, whose peak memory it would move
     feedback_launches = check_feedback_sessions_cuda_vs_cpu()
@@ -2012,6 +2399,9 @@ def main() -> int:
     # card-vs-CPU tiles, vectors and kNN, and the 1M-row kNN build
     log(json.dumps({"offline_build": {"ingest_stages": stages, "ingest_check": ingest_check,
                                       "knn_build_1M": knn_scale}}))
+    # phase 11's figures: the batch programs (a library product, no kernel
+    # of the port), concurrent sessions, the servers
+    log(json.dumps({"concurrent_serving": serving}))
     log(json.dumps({"kernels": [{
         "name": "fused_frame_max", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/fused_frame_max.cu",
@@ -2021,7 +2411,11 @@ def main() -> int:
         "launches_by_path": {"main_path": launches,
                              "feedback_sessions": feedback_launches["fused_frame_max"],
                              "multi_reg_10M": multireg["launches"],
-                             "ingest_index_rounds": ingest_launches["fused_frame_max"]},
+                             "ingest_index_rounds": ingest_launches["fused_frame_max"],
+                             # phase 11b's solo scans; 11c's card server
+                             "concurrent_sessions":
+                                 serving_launches["concurrent_sessions"]["fused_frame_max"],
+                             "web_server": serving_launches["web_server"]["fused_frame_max"]},
         "max_abs_err": worst,
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
@@ -2035,7 +2429,11 @@ def main() -> int:
         # phase 9a's sessions (pseudo_lr's refines propagate)
         "launches_by_path": {"knn_prop2_10M": sum(knn_launches.values()),
                              "feedback_sessions": feedback_launches["jacobi_step"],
-                             "ingest_graph_rounds": ingest_launches["jacobi_step"]},
+                             "ingest_graph_rounds": ingest_launches["jacobi_step"],
+                             "concurrent_sessions":
+                                 serving_launches["concurrent_sessions"]["jacobi_step"],
+                             # 11c's knn_prop2 sessions over HTTP
+                             "web_server": serving_launches["web_server"]["jacobi_step"]},
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
         "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],
@@ -2062,7 +2460,9 @@ def main() -> int:
         "launches_by_path": {"text_query_sessions": attn_launches,
                              "vision_encode": vision_launches["float32"],
                              "finetune": ft_fwd_launches["float32"],
-                             "ingest": ingest_launches["float32"]},
+                             "ingest": ingest_launches["float32"],
+                             # 11c's first /text on the card's server
+                             "web_server": serving_launches["web_server"]["pair_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in f32_fwd),
         # at the main path's shape (the text query: B=1, L=77, W=512, causal)
         **{k: text_query[k] for k in timing},

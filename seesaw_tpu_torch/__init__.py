@@ -6,7 +6,8 @@ imports `torch` and nothing of `seesaw_tpu`, not even its framework-free
 modules: it keeps its own copies of those (`basic_types`, `labeldb`,
 `query_interface`, `calibration`, `box_utils`, `dataset`,
 `indices.interface`, `indices.meta`, `runtime`, `loops.loop_base`,
-`utils.transactional`, `models.embeddings`, `models.tokenizer`). The types a caller of the port
+`utils.transactional`, `models.embeddings`, `models.tokenizer`,
+`configs`, `web.common`). The types a caller of the port
 needs are exported here, so a program that drives the port names only this
 package.
 
@@ -15,7 +16,9 @@ one for the caller. The hand-written kernels on the serving path (CUDA C++
 for sm_90a in `csrc/`: the frame-max scan `ops.fused_scoring`, the kNN
 SpMV / Jacobi step `ops.spmv` and the CLIP towers' attention
 `ops.attention`) are built with `nvcc` at first use; on CPU tensors their
-plain PyTorch versions run.
+plain PyTorch versions run. The session web server (`web`, started by
+`python -m seesaw_tpu_torch.web.serve`) serves sessions on one device, and
+sessions that share an index coalesce their scans (`web.coalesce`).
 """
 
 __version__ = "0.1.0"

@@ -14,8 +14,9 @@ Graph loops rank externally produced per-vector scores with
 
 `save` writes the JAX package's on-disk format, with the JAX class in
 `info.json`'s constructor string, so an index saved here loads in both
-packages. Left out here (see ROADMAP.md): the mesh-sharded index and request
-coalescing. Dropped because
+packages. `from_path` with `coalesce_ms` returns the index wrapped in a
+`web.coalesce.CoalescingIndex`. Left out here (see ROADMAP.md): the
+mesh-sharded index. Dropped because
 the GPU does not need them: the 1024-frame padding of the Pallas block
 granularity, the routing of int8 around the kernel, and the power-of-two row
 buckets that bounded jit recompiles.
@@ -641,14 +642,28 @@ class MultiscaleIndex(AccessMethod):
         parts = [res.frame_ids, res.act_boxes.reshape(-1), res.act_scores,
                  res.n_valid.reshape(1)] + [e.reshape(-1) for e in extras]
         host = torch.cat([p.to(torch.float64) for p in parts]).cpu().numpy()
-        fids = host[:k].astype(np.int64)
-        boxes = host[k:5 * k].reshape(k, 4).astype(np.float32)
-        scores = host[5 * k:6 * k].astype(np.float32)
-        n = int(host[6 * k])
         off, ext = 6 * k + 1, []
         for e in extras:
             ext.append(host[off:off + e.numel()].astype(np.float32))
             off += e.numel()
+        return self._host_result(host, k), ext
+
+    def _format_results(self, res) -> list:
+        """A batch's QueryResult (a leading Q axis on every field) -> one
+        result dict per query, in ONE transfer."""
+        Q, k = res.frame_ids.shape
+        parts = [res.frame_ids, res.act_boxes.reshape(Q, -1), res.act_scores,
+                 res.n_valid.reshape(Q, 1)]
+        host = torch.cat([p.to(torch.float64) for p in parts], dim=1).cpu().numpy()
+        return [self._host_result(row, k) for row in host]
+
+    def _host_result(self, host: np.ndarray, k: int) -> dict:
+        """Decode one packed row (ids, boxes, scores, count) into the result
+        dict."""
+        fids = host[:k].astype(np.int64)
+        boxes = host[k:5 * k].reshape(k, 4).astype(np.float32)
+        scores = host[5 * k:6 * k].astype(np.float32)
+        n = int(host[6 * k])
         dbidxs = self.meta.frame_dbidx[fids[:n]]
         activations = [
             {
@@ -658,7 +673,7 @@ class MultiscaleIndex(AccessMethod):
             }
             for b, s, dbidx in zip(boxes[:n], scores[:n], dbidxs)
         ]
-        return {"dbidxs": dbidxs.astype(np.int64), "activations": activations}, ext
+        return {"dbidxs": dbidxs.astype(np.int64), "activations": activations}
 
     def new_query(self) -> "BoxFeedbackQuery":
         return BoxFeedbackQuery(self)
@@ -708,9 +723,10 @@ class MultiscaleIndex(AccessMethod):
     def from_path(index_path: str, *, device, embedding=None, **options) -> "MultiscaleIndex":
         """Read the `vectors.npz` / `info.json` that the JAX package writes;
         without `embedding`, the model `info.json` names is loaded onto
-        `device`. Options: device_dtype, int8_scale, use_pallas (ignored);
-        the mesh and coalescing options are not ported yet."""
-        for opt in ("mesh", "sharded", "coalesce_ms"):
+        `device`. Options: device_dtype, int8_scale, use_pallas (ignored),
+        coalesce_ms (returns a `CoalescingIndex` with that window); the mesh
+        options are not ported yet."""
+        for opt in ("mesh", "sharded"):
             if options.get(opt):
                 raise NotImplementedError(f"index option {opt!r} is not ported yet")
         p = Path(index_path)
@@ -723,12 +739,18 @@ class MultiscaleIndex(AccessMethod):
         device_dtype = options.get("device_dtype")
         if device_dtype is None:  # same rule as the JAX index
             device_dtype = "bfloat16" if vectors.size * 4 > 4 * 1024**3 else "float32"
-        return MultiscaleIndex(
+        idx = MultiscaleIndex(
             device=device, embedding=embedding, vectors=vectors, meta=meta,
             path=str(p), excluded=BitMap(info.get("excluded") or []),
             device_dtype=device_dtype,
             int8_scale=options.get("int8_scale", "row"),
         )
+        if options.get("coalesce_ms"):
+            # concurrent sessions share one (N, D) @ (D, Q) scan
+            from ..web.coalesce import CoalescingIndex
+
+            return CoalescingIndex(idx, window_ms=float(options["coalesce_ms"]))
+        return idx
 
 
 class BoxFeedbackQuery(InteractiveQuery):

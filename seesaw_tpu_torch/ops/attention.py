@@ -31,6 +31,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import count_launch
+
 HEAD_DIM = 64
 MAX_LEN = 384
 # input type -> (library, forward entry, backward entry)
@@ -139,8 +141,7 @@ def _launch(lib, fn_name, argtypes, args, device):
 
 
 def _count(wrapper, dtype):
-    wrapper.launches += 1
-    wrapper.launches_by_dtype[str(dtype).removeprefix("torch.")] += 1
+    count_launch(wrapper, str(dtype).removeprefix("torch."))
 
 
 def reset_launch_counts():

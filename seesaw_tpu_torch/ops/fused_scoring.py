@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from . import count_launch
 from .frame_scoring import (
     NEG_INF, _INT8_EXACT_D, apply_new_exclusions, quantize_query,
     rank_from_frame_max,
@@ -138,7 +139,7 @@ def fused_frame_max(vectors, valid, excluded, qvec, row_scale=None):
         )
     if err != 0:
         raise RuntimeError(f"fused_frame_max kernel launch failed: CUDA error {err}")
-    fused_frame_max.launches += 1
+    count_launch(fused_frame_max)
     return out
 
 

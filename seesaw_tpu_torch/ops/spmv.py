@@ -30,6 +30,8 @@ import ctypes
 
 import torch
 
+from . import count_launch
+
 DONE, ITERS = 1, 2  # state words read by callers (see csrc/knn_spmv.cu)
 
 
@@ -103,7 +105,7 @@ def knn_spmv(f: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tenso
                  nbr.shape[0], nbr.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"knn_spmv kernel launch failed: CUDA error {err}")
-    knn_spmv.launches += 1
+    count_launch(knn_spmv)
     return out
 
 
@@ -173,7 +175,7 @@ def jacobi_step(f_in, f_out, nbr, w, denom, lam_prior, labels, is_labeled,
                  int(steps), stream)
     if err != 0:
         raise RuntimeError(f"jacobi_step kernel launch failed: CUDA error {err}")
-    jacobi_step.launches += 1
+    count_launch(jacobi_step)
 
 
 jacobi_step.launches = 0  # kernel launches in this process (CUDA only)

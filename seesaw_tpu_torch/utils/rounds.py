@@ -86,20 +86,28 @@ def sync(device: torch.device):
 
 def device_index(n_vectors: int, dim: int, dtype: str, *, device,
                  generator: torch.Generator, embedding=None,
-                 path: str | None = None) -> MultiscaleIndex:
-    """(n_vectors, dim) bf16 (or int8 with per-row scales) matrix of random
-    tile vectors made on `device`, all tiles valid; host metadata only. The
-    text query goes through `embedding` (a `ClipEmbedding` whose `dim` is
-    `dim`), or by default through a stub that returns seeded random
-    vectors. `path` names the index directory, under which `multireg_xlx`
-    caches a graph."""
+                 path: str | None = None, int8_scale: str = "row") -> MultiscaleIndex:
+    """(n_vectors, dim) bf16 (or int8 with scales uniform in [0.5, 1) / 127
+    per row, or per frame with `int8_scale="frame"`, as `bench.py` build_db
+    and bench_multi_query make them) matrix of random tile vectors made on
+    `device`, all tiles valid; host metadata only. The text query goes
+    through `embedding` (a `ClipEmbedding` whose `dim` is `dim`), or by
+    default through a stub that returns seeded random vectors. `path` names
+    the index directory, under which `multireg_xlx` caches a graph."""
     dev = torch.device(device)
     F = n_vectors // TILES
     n = F * TILES
+    frame_scale = None
     if dtype == "int8":
         V = torch.randint(-127, 128, (n, dim), dtype=torch.int8, device=dev,
                           generator=generator)
-        row_scale = (torch.rand(n, device=dev, generator=generator) * 0.5 + 0.5) / 127.0
+        if int8_scale == "frame":
+            frame_scale = (torch.rand(F, device=dev, generator=generator) * 0.5 + 0.5) / 127.0
+            row_scale = frame_scale.repeat_interleave(TILES)  # the solo scan's scales
+        elif int8_scale == "row":
+            row_scale = (torch.rand(n, device=dev, generator=generator) * 0.5 + 0.5) / 127.0
+        else:
+            raise ValueError(f"unknown int8_scale {int8_scale!r}")
     elif dtype == "bfloat16":
         V = torch.randn(n, dim, dtype=torch.bfloat16, device=dev, generator=generator)
         row_scale = None
@@ -122,7 +130,7 @@ def device_index(n_vectors: int, dim: int, dtype: str, *, device,
         valid=torch.ones(F, TILES, dtype=torch.bool, device=dev),
         boxes=torch.from_numpy(_BOXES).to(dev).repeat(F, 1),
         zoom=torch.from_numpy(_ZOOM).to(dev).repeat(F),
-        meta=meta, row_scale=row_scale, path=path,
+        meta=meta, row_scale=row_scale, frame_scale=frame_scale, path=path,
     )
 
 
@@ -178,10 +186,7 @@ def drive_session(idx: MultiscaleIndex, params: SessionParams, rounds: int,
             syncs.append(idx.last_fit["host_syncs"])
             idx.last_fit = None
         with annotate("round.label"):
-            state = s.get_state()
-            for im in state.gdata[-1]:
-                im.boxes = ([Box(x1=0.0, y1=0.0, x2=112.0, y2=112.0, marked_accepted=True)]
-                            if rng.random() < 0.3 else [])
+            state = _label_round(s, rng)
         with annotate("round.update_state"):
             s.update_state(state)
         with annotate("round.refine"):
@@ -194,6 +199,83 @@ def drive_session(idx: MultiscaleIndex, params: SessionParams, rounds: int,
     if len(flat) != len(set(flat)):
         raise AssertionError("the session repeated a dbidx")
     return next_ms, round_ms, syncs
+
+
+def _label_round(s: Session, rng: np.random.Generator):
+    """The simulated user: accept about 30% of the round's images."""
+    state = s.get_state()
+    for im in state.gdata[-1]:
+        im.boxes = ([Box(x1=0.0, y1=0.0, x2=112.0, y2=112.0, marked_accepted=True)]
+                    if rng.random() < 0.3 else [])
+    return state
+
+
+def drive_concurrent_sessions(idx: MultiscaleIndex, params, n_sessions: int, rounds: int,
+                              *, coalesce_ms: float | None) -> dict:
+    """`n_sessions` simulated users, one thread each, over one index: each
+    session i (params[i % len(params)]) sets a text query of its own, then
+    runs `rounds` clicks (next, label ~30%, update_state, refine), all
+    threads released together. With `coalesce_ms` the sessions share a
+    `CoalescingIndex` over `idx` (that window, batches of at most 16), so
+    concurrent plain queries run as batched scans; without, each query
+    scans alone. Session i's user draws from `default_rng(i)`.
+    Returns each session's host-clock `next` ms (ending in a device sync),
+    their p50 over rounds 1.., clicks/s over all sessions (a click is a
+    round), the wall seconds and the coalescer's stats (None uncoalesced).
+    Raises if a session repeats a dbidx or a thread fails."""
+    import threading
+
+    from ..web.coalesce import CoalescingIndex
+
+    params = list(params) if isinstance(params, (list, tuple)) else [params]
+    served = CoalescingIndex(idx, window_ms=coalesce_ms) if coalesce_ms else idx
+    dataset = SimpleNamespace(get_urls=lambda b: [f"b://{int(i)}" for i in b])
+    sessions = []
+    for i in range(n_sessions):  # the text queries go in one at a time
+        s = Session(None, dataset, served, params[i % len(params)])
+        s.set_text(f"a concurrent query {i}")
+        sessions.append(s)
+    next_ms = [[] for _ in sessions]
+    errors = []
+    start = threading.Barrier(n_sessions + 1)
+
+    def user(i):
+        s, rng = sessions[i], np.random.default_rng(i)
+        try:
+            start.wait()
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                s.next()
+                sync(idx.device)
+                next_ms[i].append((time.perf_counter() - t0) * 1e3)
+                s.update_state(_label_round(s, rng))
+                s.refine()
+        except Exception as e:  # re-raised below, with the others'
+            errors.append(e)
+
+    threads = [threading.Thread(target=user, args=(i,)) for i in range(n_sessions)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    sync(idx.device)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for i, s in enumerate(sessions):
+        flat = [int(x) for b in s.acc_indices for x in b]
+        if len(flat) != len(set(flat)) or len(flat) != rounds * s.params.batch_size:
+            raise AssertionError(f"session {i} repeated a dbidx or lost a round")
+    return {
+        "next_ms": next_ms,
+        "p50_next_ms": float(np.median([m for ms in next_ms for m in ms[1:]])),
+        "clicks_per_s": n_sessions * rounds / wall,
+        "wall_s": wall,
+        "stats": dict(served._coalescer.stats) if coalesce_ms else None,
+        "dbidxs": [[int(x) for b in s.acc_indices for x in b] for s in sessions],
+    }
 
 
 # seesaw_tpu/configs.py "knn_prop2" ranker options (the graph comes apart)

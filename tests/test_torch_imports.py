@@ -136,3 +136,67 @@ def test_offline_build_imports_no_jax(tmp_path):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_web_server_imports_no_jax(tmp_path):
+    """The port's web server (sessions over HTTP, the coalescer, `/explore`
+    with the embedding map, `python -m seesaw_tpu_torch.web.serve`) on a root
+    the port writes leaves jax, flax, optax and the JAX package out of
+    `sys.modules`; the server threads import lazily, so the check comes after
+    the requests."""
+    code = textwrap.dedent(f"""
+        import json, runpy, sys, urllib.request
+        import numpy as np
+        from seesaw_tpu_torch import GlobalDataManager, VectorMeta
+        from seesaw_tpu_torch.indices.multiscale import MultiscaleIndex
+        from seesaw_tpu_torch.web import SeesawServer
+        from seesaw_tpu_torch.web.coalesce import CoalescingIndex
+        root = {str(tmp_path / "root")!r}
+        ds = GlobalDataManager(root).create_dataset(
+            "d", paths=[f"img_{{i}}.jpg" for i in range(20)])
+        rng = np.random.default_rng(0)
+        boxes = np.tile(np.array([[0, 0, 10, 10], [0, 0, 20, 20]], np.float32), (20, 1))
+        meta, order = VectorMeta.from_arrays(np.repeat(np.arange(20), 2),
+                                             np.tile([1, 2], 20), boxes)
+        vecs = rng.normal(size=(40, 16)).astype(np.float32)[order]
+        MultiscaleIndex(device="cpu", vectors=vecs, meta=meta).save(
+            ds.index_path("multiscale"), model_name="hash-16")
+        assert isinstance(MultiscaleIndex.from_path(ds.index_path("multiscale"),
+                                                    device="cpu", coalesce_ms=3),
+                          CoalescingIndex)
+        app = SeesawServer(root, {str(tmp_path / "save")!r}, device="cpu")
+        httpd = app.serve(port=0)
+        base = f"http://127.0.0.1:{{httpd.server_address[1]}}"
+        cookie = None
+        def post(path, body=None):
+            global cookie
+            req = urllib.request.Request(base + path, method="POST",
+                data=json.dumps(body).encode() if body is not None else b"")
+            if cookie:
+                req.add_header("Cookie", f"session_id={{cookie}}")
+            with urllib.request.urlopen(req) as r:
+                sc = r.headers.get("Set-Cookie")
+                if sc:
+                    cookie = sc.split("session_id=")[1].split(";")[0]
+                return json.loads(r.read())
+        post("/user_session?mode=plain&dataset=d&index=multiscale")
+        state = post("/text?key=a+dog")
+        post("/next", {{"client_data": state}})
+        with urllib.request.urlopen(base + "/explore?dataset=d&clusters=3&q=a+dog") as r:
+            assert "embedding map" in r.read().decode()
+        httpd.shutdown()
+        sys.argv = ["serve", "--help"]
+        try:
+            runpy.run_module("seesaw_tpu_torch.web.serve", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        bad = [m for m in sys.modules
+               if m in ("jax", "flax", "optax") or m == "seesaw_tpu"
+               or m.startswith("seesaw_tpu.")]
+        assert not bad, bad
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

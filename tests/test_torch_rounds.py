@@ -33,6 +33,52 @@ def test_device_index_rounds(method, dtype):
         assert syncs == []
 
 
+def test_device_index_frame_scales():
+    """int8 with per-frame scales: one scale a frame in [0.5, 1) / 127, the
+    solo scan's per-row scales the same values tile by tile, and a batch of
+    queries over it through the frame-scale program equal to solo queries."""
+    from seesaw_tpu_torch.ops import frame_scoring as tfs
+
+    gen = torch.Generator().manual_seed(0)
+    idx = R.device_index(N_VECTORS, DIM, "int8", device="cpu", generator=gen,
+                         int8_scale="frame")
+    fs = idx._frame_scale
+    assert fs.shape == (idx.n_frames,) and idx._V.dtype == torch.int8
+    assert bool(((fs >= 0.5 / 127) & (fs < 1.0 / 127)).all())
+    assert torch.equal(idx._row_scale, fs.repeat_interleave(R.TILES))
+    qs = torch.from_numpy(np.random.default_rng(1).normal(size=(4, DIM)).astype(np.float32))
+    excl = torch.zeros(4, idx.n_frames, dtype=torch.bool)
+    rank = dict(shortlist_size=50, topk=10, max_zoom=idx._max_zoom)
+    batch = tfs.query_program_batch_framescale(idx._V, idx._valid, idx._boxes, idx._zoom,
+                                               qs, excl, fs, **rank)
+    for i in range(4):
+        solo, _ = idx._fused_query(qs[i], excl[i], idx._new_ids_tensor(np.zeros(0, int)), rank)
+        assert torch.equal(batch.frame_ids[i], solo.frame_ids)
+        assert torch.equal(batch.frame_scores[i], solo.frame_scores)
+
+
+@pytest.mark.parametrize("coalesce_ms", [None, 20.0])
+def test_drive_concurrent_sessions(coalesce_ms):
+    """4 threads, 2 plain and 2 rocchio_update sessions, over one index:
+    per-session `next` times, clicks/s, no repeats; coalesced, the plain
+    sessions' queries batch and the deferred Rocchio rounds stay solo."""
+    gen = torch.Generator().manual_seed(0)
+    idx = R.device_index(N_VECTORS, DIM, "bfloat16", device="cpu", generator=gen)
+    params = [R.session_params(m, batch_size=3, shortlist_size=50)
+              for m in ("plain", "rocchio_update")]
+    out = R.drive_concurrent_sessions(idx, params, 4, 4, coalesce_ms=coalesce_ms)
+    assert [len(ms) for ms in out["next_ms"]] == [4] * 4
+    assert out["p50_next_ms"] > 0 and out["clicks_per_s"] > 0
+    assert all(len(d) == len(set(d)) == 12 for d in out["dbidxs"])
+    if coalesce_ms is None:
+        assert out["stats"] is None
+    else:
+        st = out["stats"]
+        # plain rounds and each Rocchio round 0 go through the coalescer; the
+        # Rocchio feedback rounds are deferred vectors, which pass it by
+        assert st["batched"] > 0 and st["batched"] + st["solo"] == 2 * 4 + 2
+
+
 def test_profile_round_on_cpu(tmp_path, capsys):
     out = tmp_path / "tables.txt"
     rc = profile_round.main([
