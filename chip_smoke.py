@@ -153,8 +153,41 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       sessions of a `coalesce_ms: 25` yaml variant on the card's server:
       no error, no repeat; p50 `/next` over HTTP.
 
+12. the evaluation path (`seesaw_tpu_torch.bench`, `research`, the tools),
+    run after phase 10 (its 12e reads phase 10's JPEGs):
+   a. the method study's corpus (`bench.study`, 4,000 images = 20,000 tiles
+      x 512, 1 category a tier) built on the card and on the CPU: vectors
+      bit-equal, kNN graphs within KNN_TOL; `run_study` with all 8 methods
+      on each: dbidxs equal round by round, hit indices, counts and tables
+      equal; where a fitted loop's session parts, its LBFGS solves, recorded
+      on both sides, are traced step by step (`utils/solves.py`) and the
+      first pair apart must depart on the f32 floor, at a kink or at a
+      stalled search; K1 in every round of plain, rocchio_update, log_reg2
+      and multi_reg and in every pseudo_lr round after its first accepted
+      image, `jacobi_step` in every propagating knn_prop2 round and every
+      pseudo_lr refine;
+   b. the corpus at 40,000 images (200,000 tiles x 512) on the card: build
+      seconds (the kNN build apart), each method's seconds, p50 of the
+      harness's per-round latencies, launches; its tables on their own
+      JSON line;
+   c. `python -m seesaw_tpu_torch.bench.run_bench`'s `main` on a 2-variant
+      yaml over 12a's root, 5 batches, with 2 `spawn` workers on the card
+      (K1 launched in each worker's every session) and with 1: summaries
+      equal;
+   d. `research.looptest.TempRegression` (50,000 x 512, 100 classes, 200
+      epochs) and `research.mixture.MixtureModel` (20,000 x 512, 4
+      components, full covariance) on the card against the CPU; ms an
+      epoch and an EM iteration (its loop held to no host sync);
+   e. `ingest.extract_gt_vectors` over phase 10's 480 JPEGs with 2 boxes
+      each, clip-vit-b32 at B=256 on the card: crops/s, 12 K5 launches a
+      batch, 16 crops' vectors against the CPU at phase 7b's bar;
+   f. `ingest.make_knn_graphs_batch` over 12a's roots (the index and a
+      subset a category, K=10, factored), card against CPU;
+   g. one `plain` harness session inside `utils.profiling.device_trace`:
+      the trace names K1's kernel.
+
 The line before the last is the kernel record (JSON); the last line is
-{"ok": true, "device": {...}}; phase 10's and phase 11's figures that
+{"ok": true, "device": {...}}; phase 10's, 11's and 12's figures that
 are no kernel's print on their own JSON lines before the kernel record.
 The check that no `seesaw_tpu` module, jax, flax or optax was imported
 runs after every phase (the servers' threads import lazily). Without a
@@ -2274,6 +2307,623 @@ def serving_path(first_cell, dev, gen, card):
             {"concurrent_sessions": session_launches, "web_server": http_launches})
 
 
+# -- phase 12 ----------------------------------------------------------------
+# the method study's corpus (bench/study.py: graded tiers, 1 category a tier,
+# 24 positives and up to 18 distractors each) at CLIP's width: 4,000 images
+# (20,000 tiles x 512) on the card and on the CPU; 40,000 images (200,000
+# tiles, 0.41 GB f32) on the card alone
+STUDY = dict(instances_per_tier=1, dim=DIM, seed=0)
+STUDY_CHECK_IMAGES, STUDY_SCALE_IMAGES = 4_000, 40_000
+# the loops whose `next` scans the index (K1) every round; pseudo_lr scans
+# from its first accepted image on (before it, it ranks as knn_prop2 does);
+# knn_prop2, active_search and lknn rank per-vector scores without the scan
+SCAN_LOOPS = ("plain", "rocchio_update", "log_reg2", "multi_reg")
+FITTED_LOOPS = ("log_reg2", "multi_reg", "pseudo_lr")
+BENCH_BATCHES = 5
+BENCH_YAML = f"""\
+variants:
+  - {{name: plain, interactive: plain}}
+  - {{name: lr, interactive: log_reg2}}
+datasets: [study]
+shared_session_params:
+  batch_size: 3
+  shortlist_size: 40
+  agg_method: avg_score
+  aug_larger: all
+  index_name: multiscale
+shared_bench_params: {{n_batches: {BENCH_BATCHES}, max_results: 22, query_template: "a {{}}"}}
+"""
+# TempRegression at a probe's scale: 50,000 x 512 inputs, 100 classes, 200
+# full-batch epochs. Card vs CPU: f32 GEMMs summed in another order through
+# 200 Adam steps. At 10,000 rows an f32 fit parts from an f64 one by 6.7e-7
+# of a loss and 1.4e-3 of a logit (of logits up to 14.5), so losses rtol
+# 1e-4 and logits atol TEMPREG_LOGIT_TOL; predictions equal wherever the
+# CPU's top two logits lie more than twice that apart
+TEMPREG_N, TEMPREG_C, TEMPREG_EPOCHS = 50_000, 100, 200
+TEMPREG_TOL = dict(rtol=1e-4, atol=1e-5)
+TEMPREG_LOGIT_TOL = 1e-2
+# a full-covariance mixture of 4 components over 20,000 x 512 points
+# (`mixture.gen_data`): card vs CPU after 10 EM iterations, f32 einsums over
+# 20,000 points and Cholesky factors of 512 x 512 covariances in another
+# order. An f32 run parts from an f64 one by 1.6e-6 in the means, 4.2e-7 in
+# the covariances and 7.4e-5 in the log-likelihood (of 714)
+MIX_N, MIX_K, MIX_CHECK_ITERS, MIX_ITERS = 20_000, 4, 10, 100
+MIX_TOL = dict(rtol=1e-4, atol=1e-4)
+GT_BOXES, GT_CHECK_IMAGES = 2, 8  # boxes an image; images checked on the CPU
+
+
+def session_probe():
+    """A context in which every port `Session`'s `next` and `refine` are
+    recorded, and every LBFGS solve (`utils.solves.recording_solves`). Each
+    round records its session, loop and query string, the dbidxs `next`
+    returned, whether a staged propagation was due (knn_prop2), the
+    accepted images before `next`, the K1 and `jacobi_step` launches of
+    `next` and of `refine`, and the range of solves each made."""
+    import contextlib
+    import itertools
+
+    from seesaw_tpu_torch import session as S
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops import spmv
+    from seesaw_tpu_torch.ops.propagation import DeferredPropagation
+    from seesaw_tpu_torch.utils.solves import recording_solves
+
+    def counts():
+        return fs.fused_frame_max.launches, spmv.jacobi_step.launches
+
+    @contextlib.contextmanager
+    def probe():
+        rounds, ids = [], itertools.count()
+        orig_next, orig_refine = S.Session.next, S.Session.refine
+        with recording_solves() as solves:
+            def next_(self):
+                sid = self.__dict__.setdefault("_probe_id", next(ids))
+                model = self.loop.state.knn_model
+                rec = dict(sid=sid, method=self.params.interactive, query=self.init_q,
+                           staged=model is not None and isinstance(
+                               model.current_scores_any(), DeferredPropagation),
+                           accepted=len(self.accepted), refine=None)
+                n0, (k1, jac) = len(solves), counts()
+                out = orig_next(self)
+                k1b, jacb = counts()
+                rec.update(dbidxs=[int(i) for i in out], next_k1=k1b - k1,
+                           next_jac=jacb - jac, solves=(n0, len(solves)))
+                rounds.append(rec)
+                return out
+
+            def refine_(self):
+                rec = next(r for r in reversed(rounds) if r["sid"] == self._probe_id)
+                n0, (k1, jac) = len(solves), counts()
+                orig_refine(self)
+                k1b, jacb = counts()
+                rec["refine"] = dict(k1=k1b - k1, jac=jacb - jac, solves=(n0, len(solves)))
+
+            S.Session.next, S.Session.refine = next_, refine_
+            try:
+                yield SimpleNamespace(rounds=rounds, solves=solves)
+            finally:
+                S.Session.next, S.Session.refine = orig_next, orig_refine
+
+    return probe()
+
+
+def probe_sessions(probe) -> dict:
+    """(loop, query) -> that session's rounds (one session each)."""
+    out, sids = {}, {}
+    for r in probe.rounds:
+        key = (r["method"], r["query"])
+        if sids.setdefault(key, r["sid"]) != r["sid"]:
+            raise AssertionError(f"two sessions of {key}")
+        out.setdefault(key, []).append(r)
+    return out
+
+
+def check_study_launches(sessions) -> dict:
+    """K1 in every round of the scan loops' sessions and in every pseudo_lr
+    round after its first accepted image; `jacobi_step` in every knn_prop2
+    round that propagates and in every pseudo_lr refine. Returns the rounds
+    and launches of each loop."""
+    by_loop = {}
+    for (method, query), rs in sessions.items():
+        k1 = [r["next_k1"] for r in rs]
+        refines = [r["refine"] for r in rs if r["refine"] is not None]
+        staged = [r["next_jac"] for r in rs if r["staged"]]
+        if method in SCAN_LOOPS and min(k1) < 1:
+            raise AssertionError(f"{method} {query!r}: K1 launches per round {k1}")
+        if method == "pseudo_lr" and (
+                min(f["jac"] for f in refines) < 1
+                or any(r["next_k1"] < 1 for r in rs if r["accepted"] > 0)):
+            raise AssertionError(f"pseudo_lr {query!r}: K1 per round {k1}, Jacobi per "
+                                 f"refine {[f['jac'] for f in refines]}")
+        if method == "knn_prop2" and (not staged or min(staged) < 1):
+            raise AssertionError(f"knn_prop2 {query!r}: Jacobi launches per propagating "
+                                 f"round {staged}")
+        tot = by_loop.setdefault(method, dict(rounds=0, fused_frame_max=0, jacobi_step=0,
+                                              propagating_rounds=0))
+        tot["rounds"] += len(rs)
+        tot["propagating_rounds"] += len(staged)
+        tot["fused_frame_max"] += sum(k1) + sum(f["k1"] for f in refines)
+        tot["jacobi_step"] += sum(r["next_jac"] for r in rs) + sum(f["jac"] for f in refines)
+    return by_loop
+
+
+def study_cuda_vs_cpu(dev, card):
+    """Phase 12a: the study corpus at STUDY_CHECK_IMAGES built on the card
+    and on the CPU (vectors bit-equal, kNN graphs within KNN_TOL), then
+    `run_study` with all eight methods on each: the same dbidxs round by
+    round (a fitted loop's parting explained by its solves), hit indices,
+    counts and tables; K1 and `jacobi_step` where each loop must launch
+    them. Returns (record, the card's K1 and Jacobi launches, the card's
+    root)."""
+    import pandas as pd
+    import torch
+
+    from seesaw_tpu_torch.bench.study import (STUDY_METHODS, build_study_corpus,
+                                              run_study, study_tables)
+    from seesaw_tpu_torch.knn_graph import KNNGraph
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops import spmv
+    from seesaw_tpu_torch.ops.knn import assert_knn_close
+    from seesaw_tpu_torch.utils.solves import explain_parting
+
+    base = ROOT / "build" / "seesaw_tpu_torch" / "study"
+    shutil.rmtree(base, ignore_errors=True)
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        root = base / f"{name}_root"
+        t0 = time.perf_counter()
+        _, ds, cats = build_study_corpus(str(root), device=device,
+                                         n_images=STUDY_CHECK_IMAGES, **STUDY)
+        torch.cuda.synchronize()
+        corpus_s = time.perf_counter() - t0
+        fs.fused_frame_max.launches = spmv.jacobi_step.launches = 0
+        np.random.seed(0)  # pseudo_lr draws its sample from numpy's global state
+        with session_probe() as probe:
+            t0 = time.perf_counter()
+            df = run_study(str(root), str(base / f"{name}_results"), device=device)
+            torch.cuda.synchronize()
+            study_s = time.perf_counter() - t0
+        runs[name] = SimpleNamespace(
+            root=str(root), ds=ds, cats=cats, corpus_s=corpus_s, study_s=study_s,
+            df=df.sort_values(["variant", "category"]).reset_index(drop=True),
+            sessions=probe_sessions(probe), solves=probe.solves,
+            k1=fs.fused_frame_max.launches, jacobi=spmv.jacobi_step.launches)
+    g, c = runs["cuda"], runs["cpu"]
+    idx_g, idx_c = (Path(r.ds.index_path("multiscale")) for r in (g, c))
+    with np.load(idx_g / "vectors.npz") as zg, np.load(idx_c / "vectors.npz") as zc:
+        for k in zc.files:
+            if not np.array_equal(zg[k], zc[k]):
+                raise AssertionError(f"study corpus: {k} differs between card and CPU")
+        shape = zg["vectors"].shape
+    graph_g, graph_c = (KNNGraph.from_file(p / "knn_graph") for p in (idx_g, idx_c))
+    knn = assert_knn_close(graph_g.dst, graph_g.dist, graph_c.dst, graph_c.dist, KNN_TOL)
+    for f in ("ground_truth/box_data.parquet", "ground_truth/qgt.parquet"):
+        pd.testing.assert_frame_equal(pd.read_parquet(Path(g.ds.path) / f),
+                                      pd.read_parquet(Path(c.ds.path) / f))
+
+    launches = check_study_launches(g.sessions)
+    partings, same_hits = [], True
+    for key in sorted(c.sessions):
+        gr, cr = g.sessions[key], c.sessions[key]
+        gd, cd = [r["dbidxs"] for r in gr], [r["dbidxs"] for r in cr]
+        if gd == cd:
+            continue
+        part = next((i for i, (a, b) in enumerate(zip(gd, cd)) if a != b), min(len(gd), len(cd)))
+        if key[0] not in FITTED_LOOPS:
+            raise AssertionError(f"{key}: card and CPU part at round {part}: {gd[part:part + 1]} "
+                                 f"!= {cd[part:part + 1]}")
+        partings.append(dict(loop=key[0], query=key[1],
+                             **explain_parting(cr, gr, c.solves, g.solves, part)))
+    parted = {(p["loop"], p["query"]) for p in partings}
+    for (_, a), (_, b) in zip(g.df.iterrows(), c.df.iterrows()):
+        if (a.variant, a.category) != (b.variant, b.category):
+            raise AssertionError("the card's and the CPU's study ran other sessions")
+        same = (np.array_equal(a.hit_indices, b.hit_indices) and a.nseen == b.nseen
+                and a.nfound == b.nfound and np.array_equal(a.dbidxs, b.dbidxs))
+        if not same and (a.variant, f"a {a.category}") not in parted:
+            raise AssertionError(f"{a.variant} {a.category}: summaries differ")
+        same_hits &= bool(np.array_equal(a.hit_indices, b.hit_indices))
+    tables = study_tables(g.df, g.cats)
+    tables_equal = tables == study_tables(c.df, c.cats)
+    if not tables_equal and same_hits:
+        raise AssertionError("study tables differ with every session's hits equal")
+    rec = dict(images=STUDY_CHECK_IMAGES, vectors=list(shape), sessions=len(g.df),
+               corpus_s_card=g.corpus_s, corpus_s_cpu=c.corpus_s, study_s_card=g.study_s,
+               study_s_cpu=c.study_s, knn_max_dist_err=knn["max_dist_err"],
+               partings=partings, tables_equal=tables_equal,
+               launches_by_loop=launches,
+               mean_ndcg={m: v["ndcg_score"] for m, v in tables["overall"].items()})
+    log(f"[{card}] evaluation 12a: study corpus {STUDY_CHECK_IMAGES} images = {shape[0]}x"
+        f"{shape[1]} bit-equal card vs CPU, kNN max_dist_err={knn['max_dist_err']!r} (tol "
+        f"{KNN_TOL}); run_study {len(STUDY_METHODS)} methods x {len(g.cats)} categories: "
+        f"card s={g.study_s!r} cpu s={c.study_s!r} (corpus s card {g.corpus_s!r} cpu "
+        f"{c.corpus_s!r}); dbidxs equal round by round in {len(c.sessions) - len(partings)} "
+        f"of {len(c.sessions)} sessions, partings {partings}; tables equal={tables_equal}; "
+        f"launches by loop {launches}; mean nDCG {rec['mean_ndcg']}")
+    return rec, {"fused_frame_max": g.k1, "jacobi_step": g.jacobi}, g.root
+
+
+def study_at_scale(dev, card):
+    """Phase 12b: the study corpus at STUDY_SCALE_IMAGES on the card (the
+    kNN build timed apart), then each method's sessions alone: seconds,
+    p50 of the harness's per-round latencies (`BenchResult.latencies`),
+    K1 and Jacobi launches. Returns (record, tables, launches)."""
+    import pandas as pd
+    import torch
+
+    from seesaw_tpu_torch.bench.study import (STUDY_METHODS, build_study_corpus,
+                                              run_study, study_tables)
+    from seesaw_tpu_torch.knn_graph import KNNGraph
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops import spmv
+
+    base = ROOT / "build" / "seesaw_tpu_torch" / "study_scale"
+    shutil.rmtree(base, ignore_errors=True)
+    knn_s, build = [], KNNGraph.build
+
+    def timed_build(*a, **k):
+        t0 = time.perf_counter()
+        graph = build(*a, **k)
+        torch.cuda.synchronize()
+        knn_s.append(time.perf_counter() - t0)
+        return graph
+
+    KNNGraph.build = staticmethod(timed_build)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, ds, cats = build_study_corpus(str(base / "root"), device=dev,
+                                         n_images=STUDY_SCALE_IMAGES, **STUDY)
+        torch.cuda.synchronize()
+        corpus_s = time.perf_counter() - t0
+    finally:
+        KNNGraph.build = staticmethod(build)
+    methods, frames, launches = {}, [], {"fused_frame_max": 0, "jacobi_step": 0}
+    for m in STUDY_METHODS:
+        fs.fused_frame_max.launches = spmv.jacobi_step.launches = 0
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        df = run_study(str(base / "root"), str(base / f"results_{m}"), device=dev, methods=(m,))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lat = np.concatenate([np.asarray(v, float) for v in df.latencies])
+        methods[m] = dict(seconds=secs, images_seen=int(df.nseen.sum()),
+                          p50_latency_ms=float(np.median(lat)) * 1e3 if lat.size else None,
+                          fused_frame_max=fs.fused_frame_max.launches,
+                          jacobi_step=spmv.jacobi_step.launches,
+                          mean_ndcg=float(df.ndcg_score.mean()))
+        launches["fused_frame_max"] += fs.fused_frame_max.launches
+        launches["jacobi_step"] += spmv.jacobi_step.launches
+        frames.append(df)
+    tables = study_tables(pd.concat(frames, ignore_index=True), cats)
+    rec = dict(images=STUDY_SCALE_IMAGES, tiles=STUDY_SCALE_IMAGES * 5, dim=DIM,
+               corpus_s_without_knn=corpus_s - sum(knn_s), knn_build_s=sum(knn_s),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, methods=methods)
+    log(f"[{card}] evaluation 12b: study corpus {STUDY_SCALE_IMAGES} images ({rec['tiles']} "
+        f"tiles x {DIM}) on the card: build s={rec['corpus_s_without_knn']!r} without the kNN "
+        f"graph, kNN s={rec['knn_build_s']!r}; per method {methods}")
+    shutil.rmtree(base, ignore_errors=True)
+    return rec, tables, launches
+
+
+def bench_summaries(out_dir: Path):
+    from seesaw_tpu_torch.bench.harness import get_all_session_summaries
+
+    (res,) = out_dir.glob("bench_*")
+    df = get_all_session_summaries(str(res), force_recompute=True)
+    return df.sort_values(["variant", "category"]).reset_index(drop=True)
+
+
+def run_bench_workers(root: str, dev, card):
+    """Phase 12c: the `run_bench` twin on a 2-variant yaml over 12a's root,
+    BENCH_BATCHES batches, with 2 `spawn` workers on the card and then with
+    1: every session of both workers ran on the card (K1 launched in each
+    worker process) and their summaries equal the 1-worker run's. Returns
+    (record, K1 launches of both runs)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from seesaw_tpu_torch.bench import run_bench
+
+    base = ROOT / "build" / "seesaw_tpu_torch" / "run_bench"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    yaml_path = base / "bench.yaml"
+    yaml_path.write_text(BENCH_YAML)
+    rec, out = {}, {}
+    for workers in (2, 1):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, runs = run_bench.main(["--root_dir", root, "--output_dir",
+                                      str(base / f"w{workers}"), "--num_workers", str(workers),
+                                      "--device", str(dev), str(yaml_path)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pids = sorted({r["pid"] for r in runs})
+        bad = [r for r in runs if r["output_dir"] is None or r["device"] != str(dev)
+               or r["fused_frame_max_launches"] < BENCH_BATCHES]
+        if bad or len(pids) != workers or (workers > 1 and os.getpid() in pids):
+            raise AssertionError(f"run_bench {workers} workers: processes {pids}, runs {runs}")
+        out[workers] = bench_summaries(base / f"w{workers}")
+        rec[f"workers_{workers}"] = dict(
+            seconds=secs, sessions=len(runs),
+            sessions_by_process=[sum(r["pid"] == p for r in runs) for p in pids],
+            fused_frame_max=sum(r["fused_frame_max_launches"] for r in runs))
+    a, b = out[2], out[1]
+    if list(zip(a.variant, a.category)) != list(zip(b.variant, b.category)):
+        raise AssertionError("run_bench: the two runs ran other sessions")
+    for (_, x), (_, y) in zip(a.iterrows(), b.iterrows()):
+        if not (np.array_equal(x.dbidxs, y.dbidxs) and np.array_equal(x.hit_indices, y.hit_indices)
+                and x.nseen == y.nseen):
+            raise AssertionError(f"run_bench {x.variant} {x.category}: 2 workers != 1 worker")
+    log(f"[{card}] evaluation 12c: run_bench {len(a)} sessions (2 variants x "
+        f"{a.category.nunique()} categories, {BENCH_BATCHES} batches) with 2 spawn workers on "
+        f"the card == 1 worker, summaries equal; {rec}")
+    shutil.rmtree(base, ignore_errors=True)
+    return rec, sum(r["fused_frame_max"] for r in rec.values())
+
+
+def research_cuda_vs_cpu(dev, card):
+    """Phase 12d: `TempRegression` (TEMPREG_N x 512, TEMPREG_C classes,
+    TEMPREG_EPOCHS epochs) and `MixtureModel` (MIX_N x 512, MIX_K
+    components, full covariance) on the card against the CPU; ms an epoch
+    and an EM iteration on the card, the EM loop run under torch's sync
+    debug mode, so that a host sync inside it fails the phase."""
+    import torch
+
+    from seesaw_tpu_torch.research.looptest import TempRegression
+    from seesaw_tpu_torch.research.mixture import MixtureModel, em_steps, gen_data
+
+    rng = np.random.default_rng(12)
+    centers = rng.normal(size=(TEMPREG_C, DIM)).astype(np.float32) * 0.1
+    y = rng.integers(0, TEMPREG_C, TEMPREG_N)
+    X = (centers[y] + rng.normal(size=(TEMPREG_N, DIM))).astype(np.float32)
+    models, losses, secs = {}, {}, {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        # warm-up: a process's first optimizer step loads torch's compiler
+        # modules (seconds, once)
+        TempRegression(DIM, TEMPREG_C, seed=1, device=device).fit(X[:1024], y[:1024], epochs=2)
+        models[name] = TempRegression(DIM, TEMPREG_C, seed=0, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses[name] = models[name].fit(X, y, epochs=TEMPREG_EPOCHS)
+        secs[name] = time.perf_counter() - t0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], **TEMPREG_TOL)
+    lg, lc = (models[n].predict_logits(X) for n in ("cuda", "cpu"))
+    logit_err = float(np.abs(lg - lc).max())
+    if not logit_err <= TEMPREG_LOGIT_TOL:
+        raise AssertionError(f"TempRegression logits card vs CPU {logit_err!r}")
+    top2 = np.sort(lc, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * TEMPREG_LOGIT_TOL
+    if not np.array_equal(lg.argmax(1)[clear], lc.argmax(1)[clear]):
+        raise AssertionError("TempRegression predictions differ outside logit ties")
+    # where an epoch's time goes: 5 more epochs on the card under torch.profiler
+    temp_trace = traced(lambda: models["cuda"].fit(X, y, epochs=5))
+    temp = dict(n=TEMPREG_N, classes=TEMPREG_C, epochs=TEMPREG_EPOCHS,
+                ms_per_epoch_card=secs["cuda"] / TEMPREG_EPOCHS * 1e3,
+                ms_per_epoch_cpu=secs["cpu"] / TEMPREG_EPOCHS * 1e3,
+                loss_first=float(losses["cuda"][0]), loss_last=float(losses["cuda"][-1]),
+                loss_max_rel_err=float(np.abs(losses["cuda"] - losses["cpu"]).max()
+                                       / np.abs(losses["cpu"]).min()),
+                logit_max_abs_err=logit_err,
+                predictions_differing=int((lg.argmax(1) != lc.argmax(1)).sum()),
+                rows_at_a_tie=int((~clear).sum()), traced_5_epochs=temp_trace)
+
+    Xm, *_ = gen_data(n_classes=MIX_K, n_dim=DIM, n_samples=MIX_N, seed=0)
+    mms = {n: MixtureModel(MIX_K, seed=0, device=d) for n, d in (("cuda", dev), ("cpu", "cpu"))}
+    lls = {n: m.fit(Xm, max_iters=MIX_CHECK_ITERS) for n, m in mms.items()}
+    for attr in ("mus", "covs", "log_pz"):
+        np.testing.assert_allclose(getattr(mms["cuda"], attr), getattr(mms["cpu"], attr),
+                                   err_msg=attr, **MIX_TOL)
+    np.testing.assert_allclose(lls["cuda"], lls["cpu"], **MIX_TOL)
+    start = [torch.as_tensor(a, device=dev) for a in (
+        Xm, mms["cuda"].mus, mms["cuda"].covs, mms["cuda"].log_pz)]
+    em_steps(*start, n_iters=1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the loop reads nothing back: torch raises on any synchronizing call
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        *_, ll = em_steps(*start, n_iters=MIX_ITERS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ll = float(ll)
+    em_s = time.perf_counter() - t0
+    if not np.isfinite(ll):
+        raise AssertionError(f"EM log-likelihood {ll!r}")
+    em_trace = traced(lambda: em_steps(*start, n_iters=5))
+    mix = dict(n=MIX_N, k=MIX_K, dim=DIM, ll_after_check_iters=lls["cuda"],
+               ll_after_check_iters_cpu=lls["cpu"],
+               max_abs_diff={a: float(np.abs(getattr(mms["cuda"], a) - getattr(mms["cpu"], a))
+                                      .max()) for a in ("mus", "covs", "log_pz")},
+               ll_after_more_iters=ll, more_iters=MIX_ITERS,
+               ms_per_iteration_card=em_s / MIX_ITERS * 1e3, traced_5_iterations=em_trace)
+    log(f"[{card}] evaluation 12d: TempRegression {temp}; MixtureModel {mix}")
+    return {"temp_regression": temp, "mixture": mix}
+
+
+def gt_vectors_path(dev, card, clip_params, frames):
+    """Phase 12e: `extract_gt_vectors` over phase 10's JPEGs with GT_BOXES
+    ground-truth boxes each, clip-vit-b32 (the registry's seeded weights,
+    full width and depth) at B=256 on the card: crops/s, 12 K5 launches a
+    batch, and the first GT_CHECK_IMAGES images' crops encoded on the CPU
+    at phase 7b's bar. Returns (record, K5 launches)."""
+    import pandas as pd
+    import torch
+
+    from seesaw_tpu_torch import GlobalDataManager
+    from seesaw_tpu_torch.ingest import extract_gt_vectors as X
+    from seesaw_tpu_torch.labeldb import BoxTable
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.ops import attention as A
+
+    root = ROOT / "build" / "seesaw_tpu_torch" / "gt_root"
+    shutil.rmtree(root, ignore_errors=True)
+    ds = GlobalDataManager(str(root)).create_dataset("frames", image_src=str(frames[0].parent))
+    rng = np.random.default_rng(12)
+    n = len(ds.dbidxs) * GT_BOXES
+    h, w = INGEST_HW
+    xy = rng.uniform([0, 0], [w - 300, h - 300], size=(n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(40, 300, size=(n, 2))], axis=1)
+    cats = [("car", "person")[i % 2] for i in range(n)]
+    dbidx = np.repeat(np.asarray(ds.dbidxs, np.int32), GT_BOXES)
+    ds.save_ground_truth(
+        BoxTable(dbidx=dbidx, boxes=boxes.astype(np.float32), description=cats,
+                 marked_accepted=np.ones(n, bool)),
+        pd.DataFrame({c: np.ones(len(ds.dbidxs), np.float32) for c in ("car", "person")}))
+    argv = ["--root", str(root), "--dataset", "frames", "--model", "clip-vit-b32",
+            "--output_path", str(root / "gt_vectors"), "--batch_size", str(INGEST_BATCH),
+            "--device", str(dev)]
+    A.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    df = X.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    batches = -(-n // INGEST_BATCH)
+    launched = dict(A.pair_attention.launches_by_dtype)
+    vecs = np.stack(df.vectors)
+    if len(df) != n or launched["float32"] != TOWER_LAYERS * batches \
+            or sum(launched.values()) != launched["float32"]:
+        raise AssertionError(f"extract_gt_vectors: {len(df)} of {n} crops, K5 launches "
+                             f"{launched} for {batches} batches")
+    if vecs.shape != (n, 512) or not np.isfinite(vecs).all():
+        raise AssertionError(f"gt vectors {vecs.shape} or non-finite values")
+    box_table, _ = ds.load_ground_truth()
+    keep = box_table.dbidx < GT_CHECK_IMAGES
+    sub = BoxTable(dbidx=box_table.dbidx[keep], boxes=box_table.boxes[keep],
+                   description=[d for d, k in zip(box_table.description, keep) if k],
+                   marked_accepted=box_table.marked_accepted[keep])
+    patches, rows = X.crop_patches(ds, sub, padding=60, target=224)
+    cpu = X.encode_batched(ClipEmbedding("vit-b32", device="cpu", params=clip_params),
+                           patches, len(rows), device="cpu")
+    np.testing.assert_allclose(vecs[:len(rows)], cpu, **TOWER_TOL)
+    rec = dict(images=len(ds.dbidxs), crops=n, batch=INGEST_BATCH, seconds=secs,
+               crops_per_s=n / secs, k5_launches=launched["float32"], batches=batches,
+               cpu_checked_crops=len(rows),
+               max_abs_err_vs_cpu=float(np.abs(vecs[:len(rows)] - cpu).max()))
+    log(f"[{card}] evaluation 12e: extract_gt_vectors {rec}")
+    shutil.rmtree(root, ignore_errors=True)
+    return rec, launched["float32"]
+
+
+def knn_graphs_batch_cuda_vs_cpu(dev, gpu_root: str, cpu_root: str, card):
+    """Phase 12f: `make_knn_graphs_batch` over 12a's roots (the whole index
+    and one subset a category, K=10, and their factored graphs with
+    k_intra 2), on the card against the CPU: ids equal outside near-ties,
+    distances within KNN_TOL, factored graphs equal where their graphs'
+    ids are."""
+    import contextlib
+    import io
+
+    import torch
+
+    from seesaw_tpu_torch import GlobalDataManager
+    from seesaw_tpu_torch.ingest import make_knn_graphs_batch as M
+    from seesaw_tpu_torch.knn_graph import KNNGraph
+    from seesaw_tpu_torch.ops.knn import assert_knn_close
+
+    argv = ["--dataset", "study", "--all_categories", "--full", "--n_neighbors", "10",
+            "--factored_k_intra", "2", "--knng_name", "batch"]
+    secs = {}
+    for name, root, device in (("cuda", gpu_root, str(dev)), ("cpu", cpu_root, "cpu")):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            M.main(["--root", root, *argv, "--device", device])
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    worst, graphs = 0.0, 0
+    gds, cds = (GlobalDataManager(r).get_dataset("study") for r in (gpu_root, cpu_root))
+    dirs = [(Path(gds.path), Path(cds.path))] + [
+        (Path(gds.load_subset(f"cat_{c}").path), Path(cds.load_subset(f"cat_{c}").path))
+        for c in cds.load_qgt().columns]
+    for gp, cp in dirs:
+        rel = Path("indices/multiscale/knn_graph/batch")
+        g, c = KNNGraph.from_file(gp / rel), KNNGraph.from_file(cp / rel)
+        out = assert_knn_close(g.dst, g.dist, c.dst, c.dist, KNN_TOL)
+        worst = max(worst, out["max_dist_err"])
+        fg, fc = (KNNGraph.from_file(p / "indices/multiscale/knn_graph/batch_factored")
+                  for p in (gp, cp))
+        if np.array_equal(g.dst, c.dst) and not np.array_equal(fg.dst, fc.dst):
+            raise AssertionError(f"{gp}: factored graphs differ over equal graphs")
+        graphs += 1
+    rec = dict(graphs=graphs, k=10, seconds_card=secs["cuda"], seconds_cpu=secs["cpu"],
+               max_dist_err=worst)
+    log(f"[{card}] evaluation 12f: make_knn_graphs_batch {rec}")
+    return rec
+
+
+def traced_session(root: str, dev, card):
+    """Phase 12g: one `plain` harness session on 12a's root inside
+    `utils.profiling.device_trace`: the Chrome trace must exist and name
+    K1's kernel. Returns (record, K1 launches)."""
+    from seesaw_tpu_torch import IndexSpec, SessionParams
+    from seesaw_tpu_torch.basic_types import BenchParams
+    from seesaw_tpu_torch.bench.harness import BenchRunner
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.utils.profiling import device_trace
+
+    base = ROOT / "build" / "seesaw_tpu_torch" / "study_trace"
+    shutil.rmtree(base, ignore_errors=True)
+    (base / "results").mkdir(parents=True)
+    p = SessionParams(index_spec=IndexSpec(d_name="study", i_name="multiscale"),
+                      interactive="plain", batch_size=3, shortlist_size=40,
+                      agg_method="avg_score", aug_larger="all", interactive_options={})
+    b = BenchParams(name="plain", ground_truth_category="hard0", qstr="a hard0",
+                    n_batches=40, max_results=22)
+    runner = BenchRunner(root, str(base / "results"), redirect_output=False, device=dev)
+    fs.fused_frame_max.launches = 0
+    with device_trace(base / "trace") as out:
+        if out is None:
+            raise AssertionError("device_trace did not trace (a trace was already active)")
+        runner.run_loop(b, p)
+    launches = fs.fused_frame_max.launches
+    trace = json.loads((base / "trace" / "trace.json").read_text())
+    k1 = [e for e in trace["traceEvents"] if "frame_max_kernel" in str(e.get("name", ""))]
+    if not k1 or launches < 1:
+        raise AssertionError(f"the trace names no K1 kernel ({launches} launches)")
+    rec = dict(trace_mb=(base / "trace" / "trace.json").stat().st_size / 1e6,
+               k1_kernel_events=len(k1), k1_launches=launches,
+               k1_kernel_name=str(k1[0]["name"])[:80],
+               meta=(base / "trace" / "trace_meta.txt").read_text().strip())
+    log(f"[{card}] evaluation 12g: device_trace of a plain harness session {rec}")
+    shutil.rmtree(base, ignore_errors=True)
+    return rec, launches
+
+
+def evaluation_path(dev, card, clip_params, frames):
+    """Phase 12 (a-g). Returns (record, the 200k study's tables, launches
+    by path)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    study, study_launches, gpu_root = study_cuda_vs_cpu(dev, card)
+    cpu_root = str(Path(gpu_root).with_name("cpu_root"))
+    torch.cuda.empty_cache()
+    scale, tables, scale_launches = study_at_scale(dev, card)
+    torch.cuda.empty_cache()
+    bench, bench_launches = run_bench_workers(gpu_root, dev, card)
+    research = research_cuda_vs_cpu(dev, card)
+    torch.cuda.empty_cache()
+    gt, gt_launches = gt_vectors_path(dev, card, clip_params, frames)
+    graphs = knn_graphs_batch_cuda_vs_cpu(dev, gpu_root, cpu_root, card)
+    trace, trace_launches = traced_session(gpu_root, dev, card)
+    shutil.rmtree(Path(gpu_root).parent, ignore_errors=True)
+    rec = {"method_study": study, "method_study_200k": scale, "run_bench": bench,
+           "research": research, "extract_gt_vectors": gt, "make_knn_graphs_batch": graphs,
+           "device_trace": trace, "phase_seconds": time.perf_counter() - t_phase}
+    launches = {"fused_frame_max": {"method_study": study_launches["fused_frame_max"],
+                                    "method_study_200k": scale_launches["fused_frame_max"],
+                                    "run_bench": bench_launches, "device_trace": trace_launches},
+                "jacobi_step": {"method_study": study_launches["jacobi_step"],
+                                "method_study_200k": scale_launches["jacobi_step"]},
+                "pair_attention": {"extract_gt_vectors": gt_launches}}
+    return rec, tables, launches
+
+
 def traced(run) -> dict:
     """`run()` under torch.profiler: host-clock ms ending in a synchronize,
     the device's busy ms (summed kernel and copy durations, from every
@@ -2376,8 +3026,13 @@ def main() -> int:
     stages = ingest_stage_rates(dev, clip_params, frames)
     log(f"[{card}] ingest stages alone (480 frames 1280x720; encode B={INGEST_BATCH}): {stages}")
     ingest, ingest_launches = ingest_path(dev, card, clip_params, frames)
-    shutil.rmtree(frames[0].parent, ignore_errors=True)
     knn_scale = knn_build_at_scale(dev, gen, card)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # phase 12: the evaluation path (12e reads phase 10's frames)
+    evaluation, study_tables_200k, eval_launches = evaluation_path(dev, card, clip_params,
+                                                                   frames)
+    shutil.rmtree(frames[0].parent, ignore_errors=True)
     torch.cuda.synchronize()
     bad = [m for m in sys.modules
            if m in ("jax", "flax", "optax") or m == "seesaw_tpu" or m.startswith("seesaw_tpu.")]
@@ -2402,6 +3057,9 @@ def main() -> int:
     # phase 11's figures: the batch programs (a library product, no kernel
     # of the port), concurrent sessions, the servers
     log(json.dumps({"concurrent_serving": serving}))
+    # phase 12's figures: the method study, run_bench, research, tools
+    log(json.dumps({"method_study_200k_tables": study_tables_200k}))
+    log(json.dumps({"evaluation": evaluation}))
     log(json.dumps({"kernels": [{
         "name": "fused_frame_max", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/fused_frame_max.cu",
@@ -2415,7 +3073,11 @@ def main() -> int:
                              # phase 11b's solo scans; 11c's card server
                              "concurrent_sessions":
                                  serving_launches["concurrent_sessions"]["fused_frame_max"],
-                             "web_server": serving_launches["web_server"]["fused_frame_max"]},
+                             "web_server": serving_launches["web_server"]["fused_frame_max"],
+                             # phase 12: every round of the scan loops' study
+                             # sessions, the run_bench workers, the traced session
+                             **{f"evaluation_{k}": v
+                                for k, v in eval_launches["fused_frame_max"].items()}},
         "max_abs_err": worst,
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
@@ -2433,7 +3095,10 @@ def main() -> int:
                              "concurrent_sessions":
                                  serving_launches["concurrent_sessions"]["jacobi_step"],
                              # 11c's knn_prop2 sessions over HTTP
-                             "web_server": serving_launches["web_server"]["jacobi_step"]},
+                             "web_server": serving_launches["web_server"]["jacobi_step"],
+                             # phase 12: the study's knn_prop2 rounds and pseudo_lr refines
+                             **{f"evaluation_{k}": v
+                                for k, v in eval_launches["jacobi_step"].items()}},
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
         "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],
@@ -2462,7 +3127,10 @@ def main() -> int:
                              "finetune": ft_fwd_launches["float32"],
                              "ingest": ingest_launches["float32"],
                              # 11c's first /text on the card's server
-                             "web_server": serving_launches["web_server"]["pair_attention"]},
+                             "web_server": serving_launches["web_server"]["pair_attention"],
+                             # 12e: 12 a crop batch
+                             "evaluation_extract_gt_vectors":
+                                 eval_launches["pair_attention"]["extract_gt_vectors"]},
         "max_abs_err": max(r["max_abs_err"] for r in f32_fwd),
         # at the main path's shape (the text query: B=1, L=77, W=512, causal)
         **{k: text_query[k] for k in timing},

@@ -7,7 +7,8 @@ modules: it keeps its own copies of those (`basic_types`, `labeldb`,
 `query_interface`, `calibration`, `box_utils`, `dataset`,
 `indices.interface`, `indices.meta`, `runtime`, `loops.loop_base`,
 `utils.transactional`, `models.embeddings`, `models.tokenizer`,
-`configs`, `web.common`). The types a caller of the port
+`configs`, `web.common`, `metrics`, `analysis`, `user_analysis`,
+`bench.configs`, `bench.search_terms`). The types a caller of the port
 needs are exported here, so a program that drives the port names only this
 package.
 
@@ -18,7 +19,10 @@ SpMV / Jacobi step `ops.spmv` and the CLIP towers' attention
 `ops.attention`) are built with `nvcc` at first use; on CPU tensors their
 plain PyTorch versions run. The session web server (`web`, started by
 `python -m seesaw_tpu_torch.web.serve`) serves sessions on one device, and
-sessions that share an index coalesce their scans (`web.coalesce`).
+sessions that share an index coalesce their scans (`web.coalesce`). The
+evaluation path (`bench`: the simulated-user harness and the method study;
+`research`; `python -m seesaw_tpu_torch.bench.run_method_study` and
+`.run_bench`) drives the same sessions.
 """
 
 __version__ = "0.1.0"

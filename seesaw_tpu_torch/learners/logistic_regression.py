@@ -233,6 +233,14 @@ class LogisticRegression:
         assert self.params_ is not None
         return self.params_[:-1].copy()
 
+    def predict_proba(self, X: np.ndarray) -> np.ndarray:
+        """(n, 1) sigmoid of the fitted logits, on the host (the JAX
+        package's numpy)."""
+        assert self.params_ is not None
+        X = np.asarray(X, dtype=np.float32) - self.mu_
+        logits = X @ self.params_[:-1] + (self.params_[-1] if self.fit_intercept else 0.0)
+        return (1.0 / (1.0 + np.exp(-logits))).reshape(-1, 1)
+
 
 class RankRegression(LogisticRegression):
     """Pairwise-rank-loss probe; no intercept and no class weights by

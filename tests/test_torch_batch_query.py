@@ -3,7 +3,8 @@
 `seesaw_tpu_torch.ops.frame_scoring.query_program_batch*` against
 `seesaw_tpu.ops.frame_scoring`'s on the same numpy inputs (Q = 5 queries,
 each with its own exclusion mask), in f32, bf16, int8 with per-row scales
-and int8 with per-frame scales; then the port's batch against its own solo
+and int8 with per-frame scales (f32 and both int8 kinds at all 18
+`aug_larger` x `aug_weight` x `agg_method` combinations); then the port's batch against its own solo
 queries, and `seesaw_tpu_torch.web.coalesce` as `tests/test_batch_query.py`
 holds the JAX coalescer: transparent under threads, a single caller passed
 through, the frame-scale program chosen, masks that stay incremental, and
@@ -13,6 +14,7 @@ Tolerances: ids and updated masks equal; scores rtol 1e-5 (f32 dots of 32
 terms summed in another order; int8 dots are exact and dequantized in the
 JAX package's order).
 """
+import itertools
 import sys
 import threading
 from pathlib import Path
@@ -89,26 +91,44 @@ def _assert_batch_equal(got, want, n_queries=Q):
                                    np.asarray(want.act_scores)[i, :n], rtol=1e-5)
 
 
-@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "int8_frame"])
-def test_batch_programs_match_jax(kind):
+def _rank_cases():
+    """The default ranking options (RANK) in every storage kind, and all 18
+    `aug_larger` x `aug_weight` x `agg_method` combinations in f32 and in
+    int8 with per-row and per-frame scales (as tests/test_torch_frame_scoring.py
+    covers the solo path)."""
+    default = (RANK["aug_larger"], RANK["aug_weight"], RANK["agg_method"])
+    cases = [pytest.param(kind, *default, id=kind)
+             for kind in ("float32", "bfloat16", "int8", "int8_frame")]
+    for kind in ("float32", "int8", "int8_frame"):
+        for combo in itertools.product(["all", "greater", "adjacent"],
+                                       ["level_max", "cont_weighted"],
+                                       ["avg_score", "avg_vector", "plain_score"]):
+            if combo != default:
+                cases.append(pytest.param(kind, *combo, id="-".join((kind, *combo))))
+    return cases
+
+
+@pytest.mark.parametrize("kind,aug_larger,aug_weight,agg_method", _rank_cases())
+def test_batch_programs_match_jax(kind, aug_larger, aug_weight, agg_method):
+    rank = dict(RANK, aug_larger=aug_larger, aug_weight=aug_weight, agg_method=agg_method)
     V, valid, boxes, zoom, qs, excl, new_ids = _arrays(seed=1)
     jV, tV, rs, fs = _store(V, kind)
     jargs = (jV, jnp.asarray(valid), jnp.asarray(boxes), jnp.asarray(zoom), jnp.asarray(qs))
     targs = (tV, _t(valid), _t(boxes), _t(zoom), _t(qs))
     if kind == "int8_frame":
-        want = jfs.query_program_batch_framescale(*jargs, jnp.asarray(excl), _j(fs), **RANK)
-        got = tfs.query_program_batch_framescale(*targs, _t(excl), _t(fs), **RANK)
+        want = jfs.query_program_batch_framescale(*jargs, jnp.asarray(excl), _j(fs), **rank)
+        got = tfs.query_program_batch_framescale(*targs, _t(excl), _t(fs), **rank)
         want_i, want_m = jfs.query_program_batch_framescale_incr(
-            *jargs, jnp.asarray(excl), jnp.asarray(new_ids), _j(fs), **RANK)
+            *jargs, jnp.asarray(excl), jnp.asarray(new_ids), _j(fs), **rank)
         got_i, got_m = tfs.query_program_batch_framescale_incr(
-            *targs, _t(excl), _t(new_ids).long(), _t(fs), **RANK)
+            *targs, _t(excl), _t(new_ids).long(), _t(fs), **rank)
     else:
-        want = jfs.query_program_batch(*jargs, jnp.asarray(excl), _j(rs), **RANK)
-        got = tfs.query_program_batch(*targs, _t(excl), _t(rs), **RANK)
+        want = jfs.query_program_batch(*jargs, jnp.asarray(excl), _j(rs), **rank)
+        got = tfs.query_program_batch(*targs, _t(excl), _t(rs), **rank)
         want_i, want_m = jfs.query_program_batch_incr(
-            *jargs, jnp.asarray(excl), jnp.asarray(new_ids), _j(rs), **RANK)
+            *jargs, jnp.asarray(excl), jnp.asarray(new_ids), _j(rs), **rank)
         got_i, got_m = tfs.query_program_batch_incr(
-            *targs, _t(excl), _t(new_ids).long(), _t(rs), **RANK)
+            *targs, _t(excl), _t(new_ids).long(), _t(rs), **rank)
     _assert_batch_equal(got, want)
     _assert_batch_equal(got_i, want_i)
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))

@@ -101,3 +101,92 @@ def test_lbfgs_quadratic_converges():
 def test_lbfgs_reports_divergence():
     res = lbfgs_minimize(lambda x: (x * float("nan")).sum(), torch.ones(4))
     assert res.diverged and res.n_iter == 0
+
+
+def test_recorded_solves_trace_as_a_pair():
+    """`utils.solves.recording_solves` keeps each solve the learners make
+    (its objective, start point, options with their defaults, and result)
+    and leaves the solver as it was when it closes;
+    `utils.solves.trace_recorded_pair` finds two recordings of one solve at
+    the bar, and refuses two solves that part off the f32 floor, off any
+    kink and with no stalled search (two other objectives)."""
+    from seesaw_tpu_torch.learners import logistic_regression as lr_mod
+    from seesaw_tpu_torch.utils.solves import recording_solves, trace_recorded_pair
+
+    X, y, anchor, pos_weight = _problem(0)
+    args = [torch.from_numpy(a) for a in (X, y, np.ones_like(y))]
+    loss = _ce_loss(*args, pos_weight, 0.1, torch.from_numpy(anchor),
+                    fit_intercept=True, mean_over=float(len(y)))
+    x0 = torch.zeros(X.shape[1] + 1)
+    with recording_solves() as rec:
+        for fun in (loss, loss, lambda x: ((x - 1.0) ** 2).sum()):
+            lr_mod.lbfgs_minimize(fun, x0, max_iter=30)
+        lbfgs_minimize(loss, x0, max_iter=30)  # not looked up by a learner
+    lr_mod.lbfgs_minimize(loss, x0, max_iter=30)  # outside: not recorded
+    assert lr_mod.lbfgs_minimize is lbfgs_minimize
+    assert len(rec) == 3 and rec[0].options["max_iter"] == 30
+    assert rec[0].options["history"] == 10 and rec[0].x0 is x0
+    assert torch.equal(rec[0].result.x, rec[1].result.x)
+    assert trace_recorded_pair(rec[0], rec[1]) == (None, 0, 0.0)
+    with pytest.raises(AssertionError, match="depart off the f32 floor"):
+        trace_recorded_pair(rec[0], rec[2])
+
+
+def _rounds(starts, refines):
+    """Probe rounds over one run's solve list: round i's `next` made the
+    solves starts[i]..starts[i] + 1 and its refine those in refines[i]."""
+    return [dict(solves=(s, s + 1), refine=None if r is None else dict(solves=r))
+            for s, r in zip(starts, refines)]
+
+
+@pytest.mark.parametrize("case", ["refine_before", "next_at_part", "all_at_bar",
+                                  "refine_at_part", "counts_differ", "stopped"])
+def test_explain_parting_pairs_solves_by_round(case, monkeypatch):
+    """`explain_parting` holds the two runs' solves pair by pair in their
+    rounds' order: each round's `next`, then its refine, up to the parting
+    round's `next` (its refine came after the parting and is not held). The
+    runs' solve lists are offset from each other, as two runs' lists of
+    several sessions are. The records are labels, and the trace of a pair
+    departs on the floor where the labels differ."""
+    from seesaw_tpu_torch.utils import solves
+
+    held = []
+
+    def trace(a, b):
+        held.append((a, b))
+        return (None, 0, 0.0) if a == b else ("floor", 4, 0.5)
+
+    monkeypatch.setattr(solves, "trace_recorded_pair", trace)
+    # run a: round 0 next 0, refine 1-2; round 1 next 3, refine 4; round 2 next 5, refine 6
+    a_solves = ["n0", "r0a", "r0b", "n1", "r1", "n2", "r2"]
+    a_rounds = _rounds([0, 3, 5], [(1, 3), (4, 5), (6, 7)])
+    b_solves = ["other"] * 10 + list(a_solves)
+    b_rounds = _rounds([10, 13, 15], [(11, 13), (14, 15), (16, 17)])
+    part = 2
+    if case == "refine_before":
+        b_solves[12] = "r0b'"
+        want = dict(round=2, solve_round=0, phase="refine", departure="floor", step=4,
+                    coeff_max_abs_diff=0.5)
+    elif case == "next_at_part":
+        b_solves[15] = "n2'"
+        want = dict(round=2, solve_round=2, phase="next", departure="floor", step=4,
+                    coeff_max_abs_diff=0.5)
+    elif case == "refine_at_part":
+        b_solves[16] = "r2'"
+    elif case == "counts_differ":
+        b_rounds[1]["refine"]["solves"] = (14, 16)
+    elif case == "stopped":
+        part, b_rounds = 2, b_rounds[:2]
+    if case in ("refine_before", "next_at_part"):
+        assert solves.explain_parting(a_rounds, b_rounds, a_solves, b_solves, part) == want
+        n_held = {"refine_before": 3, "next_at_part": 6}[case]
+        assert held == list(zip(a_solves, b_solves[10:]))[:n_held]
+        return
+    match = {"all_at_bar": "every solve before it at the bar",
+             "refine_at_part": "every solve before it at the bar",
+             "counts_differ": "round 1 refine: 1 solves in one run, 2 in the other",
+             "stopped": "one session stopped at round 2"}[case]
+    with pytest.raises(AssertionError, match=match):
+        solves.explain_parting(a_rounds, b_rounds, a_solves, b_solves, part)
+    if case in ("all_at_bar", "refine_at_part"):
+        assert len(held) == 6  # rounds 0-1 next and refines, round 2 next
