@@ -185,10 +185,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
       subset a category, K=10, factored), card against CPU;
    g. one `plain` harness session inside `utils.profiling.device_trace`:
       the trace names K1's kernel.
+13. the mesh (`seesaw_tpu_torch.parallel`): 4 shards on the first four
+    cards, or on cuda:0 four times on a one-card machine (the phase logs
+    which); a-c run right after phase 6, d-g after phase 12:
+   a. phase 5's device-built 10M x 512 index, bf16 and then phase 6's int8
+      row scales, sliced into the shards on the card: 10 solo queries with
+      growing exclusions over the sharded and the one-device index, dbidxs
+      equal and scores within MESH_TOL, K1 launched once per shard per
+      query, p50 ms of each; a tie planted at the shortlist cutoff across
+      two shards keeps the lower frame id, as one device does;
+   b. the coalescer's batch program over the mesh, Q = 16, against the
+      one-device batch program (ids equal, BATCH_TOL), ms a dispatch in
+      chains of CHAIN;
+   c. `knn_prop2` rounds, cold and warm, of `LabelPropagationRanker2(mesh=)`
+      over phase 6's 10M x 32 graph against the one-device ranker: dbidxs
+      equal, scores within PROP_TOL, steps and done equal, `knn_spmv`
+      launched once per shard per launched step (segments of 4 steps,
+      doubling up to `dispatch_iters`), host reads <= 1 + segments;
+   d. `sharded_exact_knn` at 262,144 x 512, K = 32 (phase 10c's corpus cut
+      to a quarter) against `exact_knn` at KNN_TOL;
+   e. phase 10's 480 JPEGs extracted data-parallel against one device
+      (TOWER_TOL), K5 12 times per shard slice;
+   f. `parallel.dryrun` at 4 shards on the card: K5 and K6 in its
+      data-parallel fine-tune step, a finite loss;
+   g. `init_multihost` at world size 1 over NCCL, one `all_reduce`.
 
 The line before the last is the kernel record (JSON); the last line is
-{"ok": true, "device": {...}}; phase 10's, 11's and 12's figures that
-are no kernel's print on their own JSON lines before the kernel record.
+{"ok": true, "device": {...}}; phase 10's, 11's, 12's and 13's figures
+that are no kernel's print on their own JSON lines before the kernel
+record (13's on a `{"multi_gpu": ...}` line).
 The check that no `seesaw_tpu` module, jax, flax or optax was imported
 runs after every phase (the servers' threads import lazily). Without a
 CUDA device, or without the package beside this script, it exits non-zero
@@ -859,7 +884,7 @@ def knnprop_path(idx, dev, gen, card, rounds=8):
     log(f"[{card}] knn_prop2 path: kernel launches={launches} "
         f"fused_frame_max launches={fs.fused_frame_max.launches} "
         f"peak device memory GB={peak!r}")
-    return launches
+    return launches, weights
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -2924,6 +2949,483 @@ def evaluation_path(dev, card, clip_params, frames):
     return rec, tables, launches
 
 
+# -- phase 13 ----------------------------------------------------------------
+MESH_SHARDS = 4
+MESH_QUERIES = 10
+MESH_REBUILD_AT, MESH_REBUILD_FRAMES = 5, 5000  # a jump in the exclusions: a host rebuild
+# sharded query vs the one-device index: K1 takes each frame's max with the
+# same arithmetic on any shard, and the shortlist's rescoring has the same
+# shapes, so equal bits are expected; the bar is an f32 ulp of the scores
+MESH_TOL = dict(rtol=1e-6, atol=1e-6)
+MESH_ROUNDS = 4  # knn_prop2 rounds, cold and warm each
+# mesh propagation (row-block SpMV + PyTorch update) vs the one-launch
+# Jacobi segment: f32 row sums in another order, tests/test_torch_propagation.py's bar
+PROP_TOL = dict(rtol=2e-5, atol=2e-6)
+MESH_KNN_N, MESH_KNN_K = 262_144, 32  # phase 10c's 1M corpus cut to a quarter
+
+
+def card_mesh():
+    """Phase 13's 4-shard mesh: the first four cards, or cuda:0 four times
+    on a one-card machine. Returns (mesh, what it is, for the log)."""
+    import torch
+
+    from seesaw_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n >= MESH_SHARDS:
+        mesh, how = make_mesh(MESH_SHARDS), f"the first {MESH_SHARDS} of {n} cards"
+    else:
+        mesh = make_mesh(devices=[torch.device("cuda", 0)] * MESH_SHARDS)
+        how = f"cuda:0 {MESH_SHARDS} times: the {MESH_SHARDS} shards share one card"
+    log(f"phase 13: a {MESH_SHARDS}-shard mesh on {how}")
+    return mesh, how
+
+
+def mesh_segments(n_iter, c, max_iter) -> list:
+    """The segments a mesh propagation that stops after n_iter steps
+    launches: 4 steps, doubling up to c, max_iter in all."""
+    segs, n = [], min(4, c)
+    while sum(segs) < n_iter:
+        segs.append(min(n, max_iter - sum(segs)))
+        n = min(2 * n, c)
+    return segs
+
+
+def sync_mesh(mesh):
+    import torch
+
+    for d in mesh.distinct:
+        torch.cuda.synchronize(d)
+
+
+def mesh_index(idx, mesh):
+    """Phase 5's device-built index sliced into the mesh's shards on the card."""
+    from seesaw_tpu_torch.indices.multiscale import MultiscaleIndex
+
+    return MultiscaleIndex.from_device_arrays(
+        embedding=idx.embedding, V=idx._V, valid=idx._valid, boxes=idx._boxes,
+        zoom=idx._zoom, meta=idx.meta, row_scale=idx._row_scale,
+        frame_scale=idx._frame_scale, mesh=mesh)
+
+
+def mesh_queries(idx, m_idx, name, card) -> dict:
+    """Phase 13a for one storage: MESH_QUERIES solo queries with growing
+    exclusions (each query's results, and one jump of MESH_REBUILD_FRAMES
+    random frames) over the sharded index and the one-device index: dbidxs
+    equal, scores within MESH_TOL; K1 launched once per shard per query;
+    p50 host ms of each (ending in a sync)."""
+    import torch
+
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.runtime.bitmap import BitMap
+
+    mesh = m_idx.mesh
+    rng = np.random.default_rng(13)
+    ex_m, ex_o = BitMap(), BitMap()
+    m_ms, o_ms, worst, launched = [], [], 0.0, 0
+    for i in range(MESH_QUERIES):
+        if i == MESH_REBUILD_AT:
+            jump = rng.choice(idx.meta.frame_dbidx, MESH_REBUILD_FRAMES, replace=False)
+            ex_m.update(jump)
+            ex_o.update(jump)
+        q = rng.normal(size=DIM).astype(np.float32)
+        fs.fused_frame_max.launches = 0
+        t0 = time.perf_counter()
+        got = m_idx.query(vector=q, topk=BATCH, shortlist_size=SHORTLIST, exclude=ex_m)
+        sync_mesh(mesh)
+        t1 = time.perf_counter()
+        launched += fs.fused_frame_max.launches
+        want = idx.query(vector=q, topk=BATCH, shortlist_size=SHORTLIST, exclude=ex_o)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        m_ms.append((t1 - t0) * 1e3)
+        o_ms.append((t2 - t1) * 1e3)
+        if got["dbidxs"].tolist() != want["dbidxs"].tolist():
+            raise AssertionError(f"13a {name} query {i}: {got['dbidxs']} != {want['dbidxs']}")
+        a, b = ([x["score"] for x in r["activations"]] for r in (got, want))
+        np.testing.assert_allclose(a, b, **MESH_TOL)
+        worst = max(worst, float(np.abs(np.subtract(a, b)).max(initial=0.0)))
+        ex_m.update(got["dbidxs"])
+        ex_o.update(want["dbidxs"])
+    if launched != MESH_SHARDS * MESH_QUERIES:
+        raise AssertionError(f"13a {name}: {launched} K1 launches, not "
+                             f"{MESH_SHARDS} x {MESH_QUERIES}")
+    rec = {"storage": name, "queries": MESH_QUERIES, "k1_launches": launched,
+           "max_abs_err": worst, "sharded_p50_ms": float(np.median(m_ms)),
+           "one_device_p50_ms": float(np.median(o_ms)), "sharded_ms": m_ms,
+           "one_device_ms": o_ms}
+    log(f"[{card}] 13a {name} 10M x 512, {MESH_SHARDS} shards: {json.dumps(rec)}")
+    return rec
+
+
+def mesh_cutoff_tie(idx, m_idx, card) -> dict:
+    """Phase 13a: a tie planted at the global shortlist cutoff across two
+    shards. The frame at the cutoff (rank SHORTLIST under K1's maxima) has
+    its tiles copied onto a frame of another shard below it, so both hold
+    the same maximum; with topk = shortlist the sharded result must keep
+    the lower frame id only, as one device does. The rows are restored."""
+    import torch
+
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+
+    sh = m_idx._sharded
+    T, Fs = idx._tile_bound, sh.n_frames_local
+    q = np.random.default_rng(131).normal(size=DIM).astype(np.float32)
+    qt = torch.from_numpy(q).to(idx.device)
+    none = torch.zeros(idx.n_frames, dtype=torch.bool, device=idx.device)
+    fmax = fs.fused_frame_max(idx._V, idx._valid, none, qt, idx._row_scale).cpu().numpy()
+    order = np.argsort(-fmax, kind="stable")
+    c = int(order[SHORTLIST - 1])
+    t = next(int(f) for f in order[SHORTLIST + 10:] if f // Fs != c // Fs)
+    rc, rt = slice(c * T, (c + 1) * T), slice(t * T, (t + 1) * T)
+    s_t, lt = t // Fs, slice((t % Fs) * T, (t % Fs + 1) * T)
+    arrays = [(idx._V, sh.V[s_t])] + ([(idx._row_scale, sh.row_scale[s_t])]
+                                      if idx._row_scale is not None else [])
+    saved = [whole[rt].clone() for whole, _ in arrays]
+
+    def write(vals):  # into the index and its shard (a view of it on one card)
+        for (whole, shard), v in zip(arrays, vals):
+            whole[rt] = v
+            shard[lt] = v.to(shard.device)
+
+    try:
+        write([whole[rc] for whole, _ in arrays])
+        fm = fs.fused_frame_max(idx._V, idx._valid, none, qt, idx._row_scale)
+        if float(fm[t]) != float(fm[c]):
+            raise AssertionError("13a: the planted frames do not tie")
+        want = idx.query(vector=q, topk=SHORTLIST, shortlist_size=SHORTLIST)
+        got = m_idx.query(vector=q, topk=SHORTLIST, shortlist_size=SHORTLIST)
+    finally:
+        write(saved)
+    keep = idx.meta.frame_dbidx[min(c, t)]
+    drop = idx.meta.frame_dbidx[max(c, t)]
+    if got["dbidxs"].tolist() != want["dbidxs"].tolist():
+        raise AssertionError(f"13a tie: sharded {got['dbidxs']} != one device {want['dbidxs']}")
+    if keep not in want["dbidxs"] or drop in want["dbidxs"]:
+        raise AssertionError("13a tie: the cutoff did not keep the lower frame id alone")
+    rec = {"frames": [c, t], "shards": [c // Fs, t // Fs], "kept": int(keep)}
+    log(f"[{card}] 13a cutoff tie across shards {rec['shards']}: frames {c} and {t} tie "
+        f"at rank {SHORTLIST}; sharded == one device, frame {min(c, t)} kept")
+    return rec
+
+
+def mesh_masks(sh, ex):
+    """(Q, F) masks on the primary device -> the shards' (Q, Fs) masks."""
+    from seesaw_tpu_torch.parallel.mesh import split_rows
+
+    return [p.T.contiguous() for p in split_rows(sh.mesh, ex.T, sh.n_frames_local, True)]
+
+
+def mesh_batch(idx, m_idx, dev, gen, card) -> dict:
+    """Phase 13b: the coalescer's batch program over the mesh (Q = 16, each
+    query with its own mask) against the one-device batch program: ids
+    equal, scores within BATCH_TOL; then host ms a dispatch (ending in a
+    sync) in chains of CHAIN, each session excluding its own top hit."""
+    import torch
+
+    from seesaw_tpu_torch.parallel.sharded_index import sharded_query_batch_program
+
+    sh = m_idx._sharded
+    F, Q, Fs = idx.n_frames, Q_BATCH, sh.n_frames_local
+    rng = np.random.default_rng(14)
+    qs = torch.from_numpy(rng.normal(size=(Q, DIM)).astype(np.float32)).to(dev)
+    rows = torch.arange(Q, device=dev)
+    excl = torch.zeros(Q, F, dtype=torch.bool, device=dev)
+    excl[rows[:, None], torch.randint(0, F, (Q, EXCLUDED_PER_SESSION), device=dev,
+                                      generator=gen)] = True
+    none = torch.full((Q, 1), -1, dtype=torch.int64, device=dev)
+    rank = dict(shortlist_size=SHORTLIST, topk=TOPK)
+
+    def run(qk, masks):
+        return sharded_query_batch_program(sh, qk, masks, none, **rank)[0]
+
+    got = run(qs, mesh_masks(sh, excl))
+    err = check_batch(got, batch_fn(idx)(qs, excl), "13b sharded batch vs one device")
+
+    def chain(qss):
+        masks = mesh_masks(sh, excl)
+        for qk in qss:
+            r = run(qk, masks)
+            top = r.frame_ids[:, 0].clamp(min=0)
+            masks = [m.clone() for m in masks]
+            for s, m in enumerate(masks):
+                local = top.to(m.device) - s * Fs
+                ok = (local >= 0) & (local < Fs)
+                lc = local.clamp(0, Fs - 1)
+                m[rows.to(m.device), lc] = m[rows.to(m.device), lc] | ok
+        return r
+
+    chains = [torch.from_numpy(rng.normal(size=(CHAIN, Q, DIM)).astype(np.float32)).to(dev)
+              for _ in range(4)]
+    chain(chains[0])  # warm-up
+    ms = []
+    for qss in chains[1:]:
+        sync_mesh(sh.mesh)
+        t0 = time.perf_counter()
+        chain(qss)
+        sync_mesh(sh.mesh)
+        ms.append((time.perf_counter() - t0) * 1e3 / CHAIN)
+    rec = {"Q": Q, "max_abs_diff_vs_one_device": err, "dispatch_ms": min(ms),
+           "dispatch_ms_runs": ms}
+    log(f"[{card}] 13b coalesced batch over the mesh ({idx.device_dtype}): {json.dumps(rec)}")
+    return rec
+
+
+def mesh_knnprop(idx, m_idx, weights, dev, card) -> dict:
+    """Phase 13c: MESH_ROUNDS knn_prop2 rounds, cold then warm-started, of
+    `LabelPropagationRanker2(mesh=)` over the sharded index against the
+    one-device ranker over the one-device index, the same clicks on both:
+    dbidxs equal every round; after each propagating round the scores
+    within PROP_TOL, steps and done equal, `knn_spmv` launched once per
+    shard per launched step of `mesh_segments`, host reads <= 1 + segments."""
+    from seesaw_tpu_torch.loops.knn_methods import LabelPropagationRanker2
+    from seesaw_tpu_torch.ops import spmv
+    from seesaw_tpu_torch.runtime.bitmap import BitMap
+    from seesaw_tpu_torch.utils import rounds as R
+
+    mesh = m_idx.mesh
+    out = {}
+    spmv.knn_spmv.launches = 0
+    total = 0
+    for warm in (False, True):
+        r_one = R.knnprop_ranker(weights, dev, warm_start=warm)
+        r_mesh = LabelPropagationRanker2(weights=weights, mesh=mesh, warm_start=warm,
+                                         **R.KNNPROP_OPTIONS)
+        q = np.random.default_rng(15).normal(size=DIM).astype(np.float32)
+        base = idx.score_device(q / np.linalg.norm(q))
+        r_one.set_base_scores(base)
+        r_mesh.set_base_scores(base)
+        rng = np.random.default_rng(16)
+        ret_m, ret_o = BitMap(), BitMap()
+        rec = dict(round_ms=[], steps=[], segments=[], host_reads=[], launches=[],
+                   max_abs_err=[])
+        c = r_mesh.lp.dispatch_iters
+        for r in range(MESH_ROUNDS):
+            prev = r_mesh.last_result
+            before = spmv.knn_spmv.launches
+            t0 = time.perf_counter()
+            res_m = m_idx.rank_by_scores(r_mesh.current_scores_any(), topk=BATCH,
+                                         shortlist_size=SHORTLIST, exclude=ret_m)
+            sync_mesh(mesh)
+            rec["round_ms"].append((time.perf_counter() - t0) * 1e3)
+            launched = spmv.knn_spmv.launches - before
+            res_o = idx.rank_by_scores(r_one.current_scores_any(), topk=BATCH,
+                                       shortlist_size=SHORTLIST, exclude=ret_o)
+            got, want = res_m["dbidxs"].tolist(), res_o["dbidxs"].tolist()
+            if got != want:
+                raise AssertionError(f"13c round {r} (warm={warm}): {got} != {want}")
+            pm = r_mesh.last_result
+            if pm is not prev:  # the round propagated
+                po = r_one.last_result
+                if (pm.n_iter, pm.converged) != (po.n_iter, po.converged):
+                    raise AssertionError(f"13c round {r}: steps/done {pm.n_iter}/"
+                                         f"{pm.converged} != {po.n_iter}/{po.converged}")
+                a = r_mesh._current_scores
+                b = r_one._current_scores.to(a.device)
+                err = float((a - b).abs().max())
+                if not bool(((a - b).abs() <= PROP_TOL["atol"]
+                             + PROP_TOL["rtol"] * b.abs()).all()):
+                    raise AssertionError(f"13c round {r}: scores differ by {err}")
+                seg_steps = mesh_segments(pm.n_iter, c, r_mesh.lp.max_iter)
+                segs, steps_launched = len(seg_steps), sum(seg_steps)
+                if launched != MESH_SHARDS * steps_launched:
+                    raise AssertionError(f"13c round {r}: {launched} knn_spmv launches for "
+                                         f"{steps_launched} steps on {MESH_SHARDS} shards")
+                reads = pm.host_reads + 1  # the segments' reads and the ranking's
+                if reads > 1 + segs:
+                    raise AssertionError(f"13c round {r}: {reads} host reads, {segs} segments")
+                for k, v in (("steps", pm.n_iter), ("segments", segs), ("host_reads", reads),
+                             ("launches", launched), ("max_abs_err", err)):
+                    rec[k].append(v)
+            ret_m.update(got)
+            ret_o.update(want)
+            rows = idx.meta.frame_starts[np.searchsorted(idx.meta.frame_dbidx, got)]
+            labels = (rng.random(len(rows)) < 0.3).astype(np.float64)
+            r_mesh.update(rows, labels)
+            r_one.update(rows, labels)
+        if not rec["steps"]:
+            raise AssertionError("13c: no round propagated")
+        total += sum(rec["launches"])
+        out["warm" if warm else "cold"] = rec
+        log(f"[{card}] 13c knn_prop2 {'warm' if warm else 'cold'} over the mesh, "
+            f"{idx.meta.n_vectors}x{GRAPH_K} graph: {json.dumps(rec)}")
+    if spmv.knn_spmv.launches != total:
+        raise AssertionError("13c: knn_spmv launched outside the mesh rounds")
+    out["knn_spmv_launches"] = total
+    return out
+
+
+def mesh_knn(mesh, dev, card) -> dict:
+    """Phase 13d: `sharded_exact_knn` at MESH_KNN_N x 512, K = 32 (phase
+    10c's clustered corpus, cut to a quarter) against `exact_knn` on one
+    device: `assert_knn_close` at KNN_TOL; seconds of each."""
+    import torch
+
+    from seesaw_tpu_torch.ops.knn import assert_knn_close, exact_knn
+    from seesaw_tpu_torch.parallel.sharded_graph import sharded_exact_knn
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    X = clustered_unit_rows(MESH_KNN_N, 512, MESH_KNN_N // 64, gen, dev)
+    sync_mesh(mesh)
+    t0 = time.perf_counter()
+    ids_m, d_m = sharded_exact_knn(X, MESH_KNN_K, mesh)
+    sync_mesh(mesh)
+    t1 = time.perf_counter()
+    ids_o, d_o = exact_knn(X, MESH_KNN_K, device=dev)
+    t2 = time.perf_counter()
+    chk = assert_knn_close(ids_m, d_m, ids_o, d_o, KNN_TOL)
+    rec = {"rows": MESH_KNN_N, "k": MESH_KNN_K, "sharded_s": t1 - t0, "one_device_s": t2 - t1,
+           "ids_equal_share": float((ids_m == ids_o).mean()), **chk}
+    log(f"[{card}] 13d sharded exact kNN {MESH_KNN_N}x512 K={MESH_KNN_K}: {json.dumps(rec)}")
+    return rec
+
+
+def mesh_ingest(mesh, dev, card, clip_params, frames) -> dict:
+    """Phase 13e: phase 10's 480 JPEGs extracted data-parallel over the
+    mesh (device tiling, ViT-B/32 f32, B=256, slices of 64 on each shard's
+    tower replica) against the one-device extraction: dbidx order equal,
+    unit vectors within TOWER_TOL; K5 launched TOWER_LAYERS times per
+    shard slice."""
+    import torch
+
+    from seesaw_tpu_torch import GlobalDataManager
+    from seesaw_tpu_torch.ingest.pipeline import run_multiscale_extraction
+    from seesaw_tpu_torch.models.clip import ClipEmbedding
+    from seesaw_tpu_torch.ops import attention as A
+
+    root = ROOT / "build" / "seesaw_tpu_torch" / "mesh_ingest_root"
+    shutil.rmtree(root, ignore_errors=True)
+    ds = GlobalDataManager(str(root)).create_dataset("frames", image_src=str(frames[0].parent))
+    emb = ClipEmbedding("vit-b32", device=dev, params=clip_params)
+    A.reset_launch_counts()
+    sync_mesh(mesh)
+    t0 = time.perf_counter()
+    v_m, db_m, _, _ = run_multiscale_extraction(ds, emb, batch_size=INGEST_BATCH,
+                                                tiling="device", mesh=mesh)
+    sync_mesh(mesh)
+    mesh_s = time.perf_counter() - t0
+    launched = A.pair_attention.launches
+    t0 = time.perf_counter()
+    v_o, db_o, _, _ = run_multiscale_extraction(ds, emb, batch_size=INGEST_BATCH,
+                                                tiling="device")
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    n_tiles = INGEST_IMAGES * INGEST_TILES
+    # each batch of L tiles splits into slices of ceil(L / shards) tiles
+    sizes = [min(INGEST_BATCH, n_tiles - lo) for lo in range(0, n_tiles, INGEST_BATCH)]
+    slices = sum(-(-L // -(-L // MESH_SHARDS)) for L in sizes)
+    if launched != TOWER_LAYERS * slices:
+        raise AssertionError(f"13e: {launched} K5 launches, not {TOWER_LAYERS} x {slices}")
+    if not np.array_equal(db_m, db_o) or v_m.shape != (n_tiles, 512):
+        raise AssertionError("13e: the mesh extraction's order or shape differs")
+    np.testing.assert_allclose(v_m, v_o, **TOWER_TOL)
+    shutil.rmtree(root, ignore_errors=True)
+    rec = {"tiles": n_tiles, "batch": INGEST_BATCH, "k5_launches": launched,
+           "max_abs_err": float(np.abs(v_m - v_o).max()), "mesh_s": mesh_s, "one_device_s": one_s,
+           "mesh_tiles_per_s": n_tiles / mesh_s}
+    log(f"[{card}] 13e data-parallel extraction: {json.dumps(rec)}")
+    return rec
+
+
+def mesh_dryrun(card) -> dict:
+    """Phase 13f: the dry run twin at --n-devices 4 --device cuda, in this
+    process: every part held against one device, K5 and K6 launched by the
+    data-parallel step, a finite loss."""
+    from seesaw_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(MESH_SHARDS, "cuda")
+    b = out["b_finetune"]
+    if not (b["launches"]["pair_attention"] > 0 and b["launches"]["pair_attention_bwd"] > 0
+            and np.isfinite(b["loss"])):
+        raise AssertionError(f"13f: the data-parallel step {b}")
+    if out["a_retrieval"]["launches"]["fused_frame_max"] == 0:
+        raise AssertionError("13f: the sharded retrieval did not launch K1")
+    if out["c_graph"]["launches"]["knn_spmv"] == 0:
+        raise AssertionError("13f: the sharded propagation did not launch knn_spmv")
+    log(f"[{card}] 13f dryrun: {json.dumps(out)}")
+    return out
+
+
+def multihost_nccl(dev, card) -> dict:
+    """Phase 13g: `init_multihost` at world size 1 over NCCL, one
+    all_reduce of a CUDA tensor, then `destroy_process_group`."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from seesaw_tpu_torch.parallel.multihost import ingest_file_range, init_multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    n, rank = init_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        x = torch.arange(4, dtype=torch.float32, device=dev)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        if (n, rank) != (1, 0) or x.tolist() != [0.0, 1.0, 2.0, 3.0]:
+            raise AssertionError(f"13g: world {n} rank {rank} all_reduce {x.tolist()}")
+        rng = ingest_file_range(10)
+    finally:
+        dist.destroy_process_group()
+    rec = {"backend": "nccl", "world_size": n, "rank": rank, "file_range": list(rng),
+           "init_to_destroy_s": time.perf_counter() - t0}
+    log(f"[{card}] 13g multihost: {json.dumps(rec)}")
+    return rec
+
+
+def mesh_serving_path(idx, weights, dev, gen, card):
+    """Phase 13a-c, right after phase 6 over its index (int8 row scales)
+    and graph, with a bf16 index made as phase 5's first. Returns the
+    records and each kernel's launches on these mesh paths."""
+    import torch
+
+    from seesaw_tpu_torch.utils import rounds as R
+
+    t0 = time.perf_counter()
+    mesh, how = card_mesh()
+    recs = {"mesh": how}
+
+    def sharded(one):
+        m_idx = mesh_index(one, mesh)
+        v0 = m_idx._sharded.V[0]
+        if v0.device == one._V.device and v0.data_ptr() != one._V.data_ptr():
+            raise AssertionError("13a: the shards on the index's card are not views of it")
+        return m_idx
+
+    bf16 = R.device_index(N_VECTORS, DIM, "bfloat16", device=dev, generator=gen)
+    recs["queries_bfloat16"] = mesh_queries(bf16, sharded(bf16), "bfloat16", card)
+    del bf16
+    torch.cuda.empty_cache()
+    m_idx = sharded(idx)
+    recs["queries_int8"] = mesh_queries(idx, m_idx, "int8 row scales", card)
+    k1 = recs["queries_bfloat16"]["k1_launches"] + recs["queries_int8"]["k1_launches"]
+    recs["cutoff_tie"] = mesh_cutoff_tie(idx, m_idx, card)
+    recs["batch"] = mesh_batch(idx, m_idx, dev, gen, card)
+    recs["knn_prop2"] = mesh_knnprop(idx, m_idx, weights, dev, card)
+    recs["seconds"] = time.perf_counter() - t0
+    return recs, {"fused_frame_max": k1, "knn_spmv": recs["knn_prop2"]["knn_spmv_launches"]}
+
+
+def mesh_offline_path(dev, card, clip_params, frames):
+    """Phase 13d-g, after phase 10 (13e reads its JPEGs). Returns the
+    records and each kernel's launches on these mesh paths."""
+    t0 = time.perf_counter()
+    mesh, how = card_mesh()
+    recs = {"knn": mesh_knn(mesh, dev, card),
+            "ingest": mesh_ingest(mesh, dev, card, clip_params, frames),
+            "dryrun": mesh_dryrun(card), "multihost": multihost_nccl(dev, card)}
+    recs["seconds"] = time.perf_counter() - t0
+    d = recs["dryrun"]
+    launches = {"pair_attention_ingest": recs["ingest"]["k5_launches"],
+                "dryrun": {k: sum(d[p]["launches"][k] for p in d if isinstance(d[p], dict)
+                                  and "launches" in d[p])
+                           for k in d["a_retrieval"]["launches"]}}
+    return recs, launches
+
+
 def traced(run) -> dict:
     """`run()` under torch.profiler: host-clock ms ending in a synchronize,
     the device's busy ms (summed kernel and copy durations, from every
@@ -2991,8 +3493,13 @@ def main() -> int:
     clip = ClipEmbedding("vit-b32", device=dev, params=clip_params)
     launches, attn_launches, idx = main_path(dev, gen, card, clip)
     torch.cuda.synchronize()
-    knn_launches = knnprop_path(idx, dev, gen, card)
+    knn_launches, weights = knnprop_path(idx, dev, gen, card)
     torch.cuda.synchronize()
+    # phase 13a-c: the mesh over phase 6's index and graph
+    mesh_serving, mesh_serving_launches = mesh_serving_path(idx, weights, dev, gen, card)
+    del weights
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     # phase 11: concurrent serving, over phase 6's index first
     first_cell = batch_cell(idx, "int8 row scales", dev, gen, card)
     del idx
@@ -3032,6 +3539,10 @@ def main() -> int:
     # phase 12: the evaluation path (12e reads phase 10's frames)
     evaluation, study_tables_200k, eval_launches = evaluation_path(dev, card, clip_params,
                                                                    frames)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # phase 13d-g: the mesh's offline build, extraction, dry run and multihost init
+    mesh_offline, mesh_offline_launches = mesh_offline_path(dev, card, clip_params, frames)
     shutil.rmtree(frames[0].parent, ignore_errors=True)
     torch.cuda.synchronize()
     bad = [m for m in sys.modules
@@ -3060,6 +3571,17 @@ def main() -> int:
     # phase 12's figures: the method study, run_bench, research, tools
     log(json.dumps({"method_study_200k_tables": study_tables_200k}))
     log(json.dumps({"evaluation": evaluation}))
+    # phase 13's figures; the 4 shards share one card where the mesh line says so
+    mesh_dry = mesh_offline_launches["dryrun"]
+    log(json.dumps({"multi_gpu": {
+        "card": card, "serving": mesh_serving, "offline": mesh_offline,
+        "launches": {"fused_frame_max": {"mesh_queries": mesh_serving_launches["fused_frame_max"],
+                                         "mesh_dryrun": mesh_dry["fused_frame_max"]},
+                     "knn_spmv": {"mesh_knn_prop2": mesh_serving_launches["knn_spmv"],
+                                  "mesh_dryrun": mesh_dry["knn_spmv"]},
+                     "pair_attention": {"mesh_ingest": mesh_offline_launches[
+                         "pair_attention_ingest"], "mesh_dryrun": mesh_dry["pair_attention"]},
+                     "pair_attention_bwd": {"mesh_dryrun": mesh_dry["pair_attention_bwd"]}}}}))
     log(json.dumps({"kernels": [{
         "name": "fused_frame_max", "route": "cuda",
         "source": "seesaw_tpu_torch/csrc/fused_frame_max.cu",
@@ -3077,7 +3599,10 @@ def main() -> int:
                              # phase 12: every round of the scan loops' study
                              # sessions, the run_bench workers, the traced session
                              **{f"evaluation_{k}": v
-                                for k, v in eval_launches["fused_frame_max"].items()}},
+                                for k, v in eval_launches["fused_frame_max"].items()},
+                             # phase 13a's sharded queries (one a shard), 13f's dry run
+                             "mesh_queries": mesh_serving_launches["fused_frame_max"],
+                             "mesh_dryrun": mesh_dry["fused_frame_max"]},
         "max_abs_err": worst,
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
@@ -3098,7 +3623,11 @@ def main() -> int:
                              "web_server": serving_launches["web_server"]["jacobi_step"],
                              # phase 12: the study's knn_prop2 rounds and pseudo_lr refines
                              **{f"evaluation_{k}": v
-                                for k, v in eval_launches["jacobi_step"].items()}},
+                                for k, v in eval_launches["jacobi_step"].items()},
+                             # phase 13c's mesh rounds (knn_spmv, one a shard a
+                             # step) and 13f's dry run
+                             "mesh_knn_prop2": mesh_serving_launches["knn_spmv"],
+                             "mesh_dryrun": mesh_dry["knn_spmv"]},
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
         "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],
@@ -3130,7 +3659,11 @@ def main() -> int:
                              "web_server": serving_launches["web_server"]["pair_attention"],
                              # 12e: 12 a crop batch
                              "evaluation_extract_gt_vectors":
-                                 eval_launches["pair_attention"]["extract_gt_vectors"]},
+                                 eval_launches["pair_attention"]["extract_gt_vectors"],
+                             # 13e's data-parallel extraction (12 a shard slice);
+                             # 13f's dry run (its text and vision towers)
+                             "mesh_ingest": mesh_offline_launches["pair_attention_ingest"],
+                             "mesh_dryrun": mesh_dry["pair_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in f32_fwd),
         # at the main path's shape (the text query: B=1, L=77, W=512, causal)
         **{k: text_query[k] for k in timing},
@@ -3159,6 +3692,9 @@ def main() -> int:
         # f32 by the 3xTF32 split: phase 8c's f32 steps, 24 a step (12 vision,
         # 12 text layers)
         "launches": ft_bwd_launches["float32"],
+        # 13f's data-parallel fine-tune step (the text tower's 2 layers a shard)
+        "launches_by_path": {"finetune": ft_bwd_launches["float32"],
+                             "mesh_dryrun": mesh_dry["pair_attention_bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in f32_bwd),
         # at the main path's shape (fine-tuning's ViT-B/32 vision layer, f32)
         **{k: vit_bwd[k] for k in timing},

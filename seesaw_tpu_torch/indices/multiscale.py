@@ -12,13 +12,22 @@ Graph loops rank externally produced per-vector scores with
 `rank_by_scores`; a staged KnnProp2 round runs fused inside it
 (`_rank_deferred_propagation`).
 
+With a `mesh` of several devices (`parallel.mesh`) the padded matrix is
+row-sharded across them (`parallel.sharded_index.ShardedFrameIndex`) and
+never kept whole on one device: queries, batch queries and rankings run the
+per-shard programs with the global shortlist cutoff and merge on the mesh's
+primary device, where the exclusion masks' lists, the deferred fits and the
+host-facing state live. A staged KnnProp2 round does not fuse over a mesh:
+its propagation runs first, then the sharded ranking. A one-device mesh is
+the single-device index.
+
 `save` writes the JAX package's on-disk format, with the JAX class in
 `info.json`'s constructor string, so an index saved here loads in both
 packages. `from_path` with `coalesce_ms` returns the index wrapped in a
-`web.coalesce.CoalescingIndex`. Left out here (see ROADMAP.md): the
-mesh-sharded index. Dropped because
+`web.coalesce.CoalescingIndex`. Dropped because
 the GPU does not need them: the 1024-frame padding of the Pallas block
-granularity, the routing of int8 around the kernel, and the power-of-two row
+granularity (and with it the JAX index's refusal of `use_pallas` on a
+mesh), the routing of int8 around the kernel, and the power-of-two row
 buckets that bounded jit recompiles.
 """
 from __future__ import annotations
@@ -39,6 +48,9 @@ from ..ops import frame_scoring
 from ..ops.fused_scoring import query_program_fused_incr
 from ..ops.propagation import (
     DeferredPropagation, PropagationResult, propagate, propagate_rank, rank_padded,
+)
+from ..parallel.sharded_index import (
+    ShardedFrameIndex, sharded_query_program, sharded_rank_program,
 )
 from ..query_interface import InteractiveQuery
 from ..runtime.bitmap import BitMap, FrozenBitMap
@@ -113,6 +125,37 @@ def quantize_int8(V_pad: np.ndarray, tile_bound: int, int8_scale: str):
     return V8, scales, fscales
 
 
+def padded_host_arrays(vectors: np.ndarray, meta: VectorMeta, device_dtype: str,
+                       int8_scale: str = "row") -> dict:
+    """The index's frame-major padded layout as CPU tensors: V in its storage
+    type (invalid rows zero; int8 with its per-row and, for
+    int8_scale='frame', per-frame scales), valid, boxes, zoom and the exact
+    row of each padded row. The keyword arguments of
+    `ShardedFrameIndex._from_padded` and, moved to a device, of the
+    single-device state."""
+    T = next_pow2(max(meta.max_tiles_per_frame, 1))
+    rows, valid = meta.padded_rows(T)
+    flat_rows = rows.reshape(-1)
+    V_pad = np.ascontiguousarray(np.asarray(vectors)[flat_rows], dtype=np.float32)
+    V_pad[~valid.reshape(-1)] = 0.0
+    row_scale = frame_scale = None
+    if device_dtype == "int8":
+        V_pad, scales, fscales = quantize_int8(V_pad, T, int8_scale)
+        row_scale = torch.from_numpy(scales)
+        if fscales is not None:
+            frame_scale = torch.from_numpy(fscales)
+        V = torch.from_numpy(V_pad)
+    elif device_dtype in ("bfloat16", "float32"):
+        V = torch.from_numpy(V_pad).to(getattr(torch, device_dtype))
+    else:
+        raise ValueError(f"unknown device_dtype {device_dtype!r}")
+    return dict(V=V, valid=torch.from_numpy(valid),
+                boxes=torch.from_numpy(meta.boxes[flat_rows]),
+                zoom=torch.from_numpy(meta.zoom_level[flat_rows]),
+                row_scale=row_scale, frame_scale=frame_scale,
+                pad_rows=torch.from_numpy(flat_rows.astype(np.int64, copy=False)))
+
+
 class MultiscaleIndex(AccessMethod):
     # how many newly excluded frames per click ride into the query; bigger
     # deltas rebuild the mask on the host
@@ -122,7 +165,7 @@ class MultiscaleIndex(AccessMethod):
     def __init__(
         self,
         *,
-        device,
+        device=None,
         embedding=None,
         vectors: np.ndarray,
         meta: VectorMeta,
@@ -131,13 +174,17 @@ class MultiscaleIndex(AccessMethod):
         device_dtype: str = "float32",
         int8_scale: str = "row",
         use_pallas: bool = False,
+        mesh=None,
     ):
         """device_dtype: 'float32', 'bfloat16' or 'int8' (symmetric scales
-        per row, or per frame with int8_scale='frame'). `use_pallas` is
-        accepted for option compatibility with the JAX index and ignored:
-        every query without a second vector takes the fused scan."""
+        per row, or per frame with int8_scale='frame'; a mesh always takes
+        per-row scales, as the JAX package's). `use_pallas` is accepted for
+        option compatibility with the JAX index and ignored: every query
+        without a second vector takes the fused scan. `mesh`: row-shard the
+        matrix over its devices; the index's `device` is then the mesh's
+        primary, and `device` may be left out."""
         del use_pallas
-        self.device = torch.device(device)
+        self.device = _index_device(device, mesh)
         self.embedding = embedding
         self.path = path
         self.meta = meta
@@ -148,42 +195,31 @@ class MultiscaleIndex(AccessMethod):
             BitMap(meta.frame_dbidx).difference(self.excluded).to_array()
         )
 
-        T = next_pow2(max(meta.max_tiles_per_frame, 1))
-        rows, valid = meta.padded_rows(T)
-        flat_rows = rows.reshape(-1)
-        V_pad = self.vectors[flat_rows]
-        V_pad[~valid.reshape(-1)] = 0.0
         self.device_dtype = device_dtype
-        dev = self.device
-        row_scale = frame_scale = None
-        if device_dtype == "int8":
-            V_pad, scales, fscales = quantize_int8(V_pad, T, int8_scale)
-            row_scale = torch.from_numpy(scales).to(dev)
-            if fscales is not None:
-                frame_scale = torch.from_numpy(fscales).to(dev)
-            V = torch.from_numpy(V_pad).to(dev)
-        elif device_dtype in ("bfloat16", "float32"):
-            V = torch.from_numpy(V_pad).to(dev, getattr(torch, device_dtype))
-        else:
-            raise ValueError(f"unknown device_dtype {device_dtype!r}")
         base = (
             self.excluded.contains_many(meta.frame_dbidx.astype(np.uint32))
             if len(self.excluded)
             else np.zeros(meta.n_frames, dtype=bool)
         )
+        sharded = mesh is not None and mesh.size > 1
+        host = padded_host_arrays(self.vectors, meta, device_dtype,
+                                  "row" if sharded else int8_scale)
+        if sharded:
+            del host["frame_scale"]
+            self._set_sharded_state(ShardedFrameIndex._from_padded(mesh, meta, **host), base)
+            return
+        dev = self.device
         self._set_device_state(
-            V=V, valid=torch.from_numpy(valid).to(dev),
-            boxes=torch.from_numpy(meta.boxes[flat_rows]).to(dev),
-            zoom=torch.from_numpy(meta.zoom_level[flat_rows]).to(dev),
-            row_scale=row_scale, frame_scale=frame_scale, base_excluded=base,
-            pad_rows=torch.from_numpy(flat_rows).to(dev),
+            **{k: None if v is None else v.to(dev) for k, v in host.items()},
+            base_excluded=base,
         )
 
     def _set_device_state(self, *, V, valid, boxes, zoom, row_scale,
                           frame_scale, base_excluded, pad_rows=None):
+        self._sharded = None
         self._V = V
         self._valid = valid
-        self._tile_bound = int(valid.shape[1])
+        self._tile_bound = None if valid is None else int(valid.shape[1])
         self._boxes = boxes
         self._zoom = zoom
         self._row_scale = row_scale
@@ -199,6 +235,20 @@ class MultiscaleIndex(AccessMethod):
         self.last_fit = None  # n_iter / host_syncs of the last LogReg2 fit
         self._vectors_dev = None  # device copy of the host mirror, made on first use
 
+    def _set_sharded_state(self, sharded: ShardedFrameIndex, base_excluded):
+        """A mesh index: the blocks live on the shards' devices, and nothing
+        of the matrix on the primary device."""
+        self._set_device_state(V=None, valid=None, boxes=None, zoom=None, row_scale=None,
+                               frame_scale=None, base_excluded=base_excluded)
+        self._sharded = sharded
+        self._tile_bound = sharded.tile_bound
+        self._max_zoom = sharded.max_zoom
+
+    @property
+    def mesh(self):
+        """The mesh the matrix is sharded over, or None."""
+        return None if self._sharded is None else self._sharded.mesh
+
     @staticmethod
     def from_device_arrays(
         *,
@@ -212,14 +262,18 @@ class MultiscaleIndex(AccessMethod):
         frame_scale: Optional[torch.Tensor] = None,  # (F,) int8 per-frame
         use_pallas: bool = True,
         path: Optional[str] = None,
+        mesh=None,
     ) -> "MultiscaleIndex":
         """Serving-scale construction from arrays already on the device, with
         no host copy of the embedding matrix; labeled-row vectors for the
         per-round fits are gathered from the device matrix. The device is
-        V's; `path` names the index directory (its kNN graphs), if any."""
+        V's; `path` names the index directory (its kNN graphs), if any. With
+        a `mesh` of several devices the arrays are sliced into the shards on
+        the card (`ShardedFrameIndex.from_device_arrays`, int8 per-row
+        scales), and the index lives on the mesh."""
         del use_pallas
         self = MultiscaleIndex.__new__(MultiscaleIndex)
-        self.device = V.device
+        self.device = V.device if mesh is None else _index_device(None, mesh)
         self.embedding = embedding
         self.path = path
         self.meta = meta
@@ -230,6 +284,11 @@ class MultiscaleIndex(AccessMethod):
         F, T = valid.shape
         if F != meta.n_frames or T < meta.max_tiles_per_frame or V.shape[0] != F * T:
             raise ValueError("device arrays do not match the metadata's frames")
+        if mesh is not None and mesh.size > 1:
+            self._set_sharded_state(ShardedFrameIndex.from_device_arrays(
+                mesh, meta, V=V, valid=valid, boxes=boxes, zoom=zoom, row_scale=row_scale,
+                frame_scale=frame_scale), np.zeros(meta.n_frames, dtype=bool))
+            return self
         self._set_device_state(
             V=V, valid=valid, boxes=boxes, zoom=zoom, row_scale=row_scale,
             frame_scale=frame_scale,
@@ -240,7 +299,12 @@ class MultiscaleIndex(AccessMethod):
     # -- rows ----------------------------------------------------------------
     @property
     def dim(self) -> int:
-        return int(self._V.shape[1])
+        return self._sharded.dim if self._sharded is not None else int(self._V.shape[1])
+
+    def _uniform_tiling(self) -> bool:
+        """Whether the padded layout is the exact one (every frame holds
+        tile_bound tiles), as in a device-built index."""
+        return self.meta.n_vectors == self.meta.n_frames * self._tile_bound
 
     def padded_row_ids(self, rows: np.ndarray) -> np.ndarray:
         """Exact-layout row indices -> padded device-layout row indices."""
@@ -251,7 +315,10 @@ class MultiscaleIndex(AccessMethod):
 
     def _device_rows_f32(self, prows: torch.Tensor) -> torch.Tensor:
         """Gather padded-layout rows from the device matrix as f32 (int8:
-        dequantized by the row's, or the frame's, scale)."""
+        dequantized by the row's, or the frame's, scale); on a mesh, from
+        the shards onto the primary device."""
+        if self._sharded is not None:
+            return self._sharded.rows_f32(prows)
         X = self._V[prows].to(torch.float32)
         if self._row_scale is not None:
             X = X * self._row_scale[prows][:, None]
@@ -291,7 +358,7 @@ class MultiscaleIndex(AccessMethod):
             if self._vectors_dev is None:
                 self._vectors_dev = torch.from_numpy(self.vectors).to(self.device)
             return self._vectors_dev
-        if self.meta.n_vectors != int(self._V.shape[0]):
+        if not self._uniform_tiling():
             raise ValueError("device vectors_f32() needs uniform tiling")
         return self._device_rows_f32(torch.arange(self.meta.n_vectors, device=self.device))
 
@@ -299,7 +366,7 @@ class MultiscaleIndex(AccessMethod):
         """f32 vectors of exact-layout rows (an int64 tensor on the device),
         gathered from the device matrix (dequantized for int8); needs uniform
         tiling, where the exact and padded layouts agree."""
-        if self.meta.n_vectors != int(self._V.shape[0]):
+        if not self._uniform_tiling():
             raise ValueError("device rows_f32() needs uniform tiling")
         return self._device_rows_f32(rows)
 
@@ -334,8 +401,10 @@ class MultiscaleIndex(AccessMethod):
         (which needs uniform tiling: padded layout == exact layout); host
         scores from the mirror otherwise."""
         if self.vectors is None:
-            if self.meta.n_vectors != int(self._V.shape[0]):
+            if not self._uniform_tiling():
                 raise ValueError("device score() needs uniform tiling")
+            if self._sharded is not None:
+                return self._sharded.score_vectors(self._qtensor(vec))
             rs = self._row_scale
             if rs is None and self._frame_scale is not None:
                 rs = self._frame_scale.repeat_interleave(self._tile_bound)
@@ -347,7 +416,9 @@ class MultiscaleIndex(AccessMethod):
         return s.cpu().numpy() if isinstance(s, torch.Tensor) else np.asarray(s)
 
     def score_frames(self, vec: np.ndarray) -> np.ndarray:
-        """Max tile score per frame."""
+        """Max tile score per frame (on a mesh, per shard, then gathered)."""
+        if self._sharded is not None:
+            return self._sharded.score_frames(self._qtensor(vec)).cpu().numpy()
         return frame_scoring.score_frames_max(
             self._V, self._valid, self._qtensor(vec), self._row_scale
         ).cpu().numpy()
@@ -370,6 +441,14 @@ class MultiscaleIndex(AccessMethod):
             mask |= exclude.contains_many(self.meta.frame_dbidx.astype(np.uint32))
         return mask
 
+    def _mask_to_device(self, mask: np.ndarray):
+        """A host (F,) mask in the query programs' layout: one (F,) tensor,
+        or on a mesh the shards' (Fs,) tensors (`ShardedFrameIndex.
+        shard_mask`)."""
+        if self._sharded is not None:
+            return self._sharded.shard_mask(mask)
+        return torch.from_numpy(mask).to(self.device)
+
     def _new_ids_tensor(self, ords: np.ndarray) -> torch.Tensor:
         out = np.full(self._EXCL_DELTA, -1, dtype=np.int64)
         out[: ords.shape[0]] = ords
@@ -387,8 +466,7 @@ class MultiscaleIndex(AccessMethod):
         with self._excl_lock:
             if exclude is None or len(exclude) == 0:
                 if self._excl_base is None:
-                    self._excl_base = torch.from_numpy(
-                        self._base_excluded_mask.copy()).to(self.device)
+                    self._excl_base = self._mask_to_device(self._base_excluded_mask.copy())
                 return self._excl_base, self._new_ids_tensor(no_new), None
 
             key = id(exclude)
@@ -407,7 +485,7 @@ class MultiscaleIndex(AccessMethod):
 
             # first sighting of this set, or it shrank or jumped: rebuild on
             # the host once, then incremental again
-            mask = torch.from_numpy(self._frame_exclusion_mask(exclude)).to(self.device)
+            mask = self._mask_to_device(self._frame_exclusion_mask(exclude))
             self._excl_entries[key] = _ExclEntry(exclude, exclude.copy(), mask)
             self._excl_entries.move_to_end(key)
             while len(self._excl_entries) > self._EXCL_CACHE:
@@ -462,6 +540,9 @@ class MultiscaleIndex(AccessMethod):
         q = self._qtensor(vector)
         if vector2 is None:
             res, new_mask = self._fused_query(q, mask, new_ids, rank)
+        elif self._sharded is not None:
+            res, new_mask = sharded_query_program(
+                self._sharded, q, mask, new_ids, self._qtensor(vector2), **rank)
         else:  # the discounted query has no fused form, as in the JAX package
             res, new_mask = frame_scoring.query_program_incr(
                 self._V, self._valid, self._boxes, self._zoom, q,
@@ -471,6 +552,8 @@ class MultiscaleIndex(AccessMethod):
         return self._format_result(res)[0]
 
     def _fused_query(self, q, mask, new_ids, rank):
+        if self._sharded is not None:
+            return sharded_query_program(self._sharded, q, mask, new_ids, **rank)
         return query_program_fused_incr(
             self._V, self._valid, self._boxes, self._zoom, q, mask, new_ids,
             self._row_scale, **rank,
@@ -504,8 +587,12 @@ class MultiscaleIndex(AccessMethod):
         def t(a):
             return torch.tensor(np.asarray(a, np.float32), device=dev)
 
+        V, row_scale, prows = self._V, self._row_scale, torch.from_numpy(dv.prows).to(dev)
+        if self._sharded is not None:  # the labeled rows, gathered from the shards
+            V, row_scale = self._device_rows_f32(prows), None
+            prows = torch.arange(prows.shape[0], device=dev)
         res, mu = _fit_ce_rows(
-            self._V, self._row_scale, torch.from_numpy(dv.prows).to(dev),
+            V, row_scale, prows,
             t(dv.y), t(dv.sw), dv.pos_weight, dv.reg_weight,
             t(dv.anchor) if dv.has_anchor else None, t(dv.params0),
             fit_intercept=dv.fit_intercept, max_iter=dv.max_iter,
@@ -583,13 +670,21 @@ class MultiscaleIndex(AccessMethod):
             agg_method=agg_method, max_zoom=self._max_zoom,
         )
         if isinstance(scores, DeferredPropagation):
-            return self._rank_deferred_propagation(scores.ranker, exclude=exclude, rank=rank)
+            if self._sharded is None:
+                return self._rank_deferred_propagation(scores.ranker, exclude=exclude,
+                                                       rank=rank)
+            # no fused round over a mesh: propagate first, then rank
+            scores = scores.ranker._flush_propagation()
         mask, new_ids, token = self._device_exclusion(exclude)
         s = torch.as_tensor(scores, dtype=torch.float32).to(self.device)
         if s.shape[0] != self.meta.n_vectors:
             raise ValueError(f"{s.shape[0]} scores for {self.meta.n_vectors} vectors")
-        res, new_mask = rank_padded(s, self._pad_rows, self._valid, self._boxes,
-                                    self._zoom, mask, new_ids, **rank)
+        if self._sharded is not None:
+            res, new_mask = sharded_rank_program(
+                self._sharded, self._sharded.shard_tile_scores(s), mask, new_ids, **rank)
+        else:
+            res, new_mask = rank_padded(s, self._pad_rows, self._valid, self._boxes,
+                                        self._zoom, mask, new_ids, **rank)
         self._commit_exclusion(token, new_mask)
         return self._format_result(res)[0]
 
@@ -686,7 +781,7 @@ class MultiscaleIndex(AccessMethod):
         return MultiscaleIndex(
             device=self.device, embedding=self.embedding,
             vectors=self.vectors[mask], meta=self.meta.select_rows(mask),
-            device_dtype=self.device_dtype,
+            device_dtype=self.device_dtype, mesh=self.mesh,
         )
 
     def get_knng_path(self, name: str = "") -> str:
@@ -720,15 +815,22 @@ class MultiscaleIndex(AccessMethod):
 
     # -- loading -------------------------------------------------------------
     @staticmethod
-    def from_path(index_path: str, *, device, embedding=None, **options) -> "MultiscaleIndex":
+    def from_path(index_path: str, *, device=None, embedding=None,
+                  **options) -> "MultiscaleIndex":
         """Read the `vectors.npz` / `info.json` that the JAX package writes;
         without `embedding`, the model `info.json` names is loaded onto
-        `device`. Options: device_dtype, int8_scale, use_pallas (ignored),
-        coalesce_ms (returns a `CoalescingIndex` with that window); the mesh
-        options are not ported yet."""
-        for opt in ("mesh", "sharded"):
-            if options.get(opt):
-                raise NotImplementedError(f"index option {opt!r} is not ported yet")
+        `device` (by default the mesh's primary). Options: device_dtype,
+        int8_scale, use_pallas (ignored), coalesce_ms (returns a
+        `CoalescingIndex` with that window), mesh (a `parallel.mesh.Mesh` to
+        shard the index over) and sharded=True (a mesh of every visible
+        card)."""
+        mesh = options.get("mesh")
+        if mesh is None and options.get("sharded"):
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh()
+        if device is None:
+            device = _index_device(None, mesh)
         p = Path(index_path)
         info = json.loads((p / "info.json").read_text())
         with np.load(p / "vectors.npz") as z:
@@ -744,6 +846,7 @@ class MultiscaleIndex(AccessMethod):
             path=str(p), excluded=BitMap(info.get("excluded") or []),
             device_dtype=device_dtype,
             int8_scale=options.get("int8_scale", "row"),
+            mesh=mesh,
         )
         if options.get("coalesce_ms"):
             # concurrent sessions share one (N, D) @ (D, Q) scan
@@ -751,6 +854,20 @@ class MultiscaleIndex(AccessMethod):
 
             return CoalescingIndex(idx, window_ms=float(options["coalesce_ms"]))
         return idx
+
+
+def _index_device(device, mesh) -> torch.device:
+    """The device an index's host-facing state lives on: `device`, or the
+    mesh's primary (which `device`, if given, must be)."""
+    if mesh is None:
+        if device is None:
+            raise ValueError("an index needs a device or a mesh")
+        return torch.device(device)
+    if device is not None:
+        d = torch.device(device)
+        if d.type != mesh.primary.type or d.index not in (None, mesh.primary.index):
+            raise ValueError(f"device {device} is not the mesh's primary {mesh.primary}")
+    return mesh.primary
 
 
 class BoxFeedbackQuery(InteractiveQuery):

@@ -1,10 +1,10 @@
 """Batch-build kNN graphs for a dataset and its per-category subsets, on
-one device.
+one device or over every visible card.
 
     python -m seesaw_tpu_torch.ingest.make_knn_graphs_batch --root R \
         --dataset lvis [--index multiscale] [--n_neighbors 10] [--knng_name ""] \
         [--categories catA catB | --all_categories] [--full] \
-        [--factored_k_intra N] [--device cuda|cpu]
+        [--factored_k_intra N] [--device cuda|cpu] [--sharded]
 
 The twin of `scripts/make_knn_graphs_batch.py` (the reference's
 `scripts/make_knn_graphs_lvis.py`): for each requested (dataset, index,
@@ -15,8 +15,8 @@ the whole index or of the category's subset, saved under the index's
 flow: one graph per qgt column) are created from the category's positive
 frames. With `--factored_k_intra N` the diversified graph
 (`knn_graph.factor_neighbors`) is saved beside each as `<name>_factored`.
-`--sharded` (a build over a device mesh) is refused: multi-GPU is ROADMAP
-item 16.
+`--sharded` builds over a mesh of every visible card (`parallel.mesh.
+make_mesh`, the ring build of `parallel.sharded_graph`).
 """
 import argparse
 from pathlib import Path
@@ -26,14 +26,14 @@ import torch
 
 
 def build_one(ds, index_name: str, *, knng_name: str, n_neighbors: int, device,
-              k_intra: int = 0):
+              k_intra: int = 0, mesh=None):
     from ..knn_graph import KNNGraph, factor_neighbors
 
     idx = ds.load_index(index_name, device=device, options={})
     # subset indices carry no on-disk path; the graph lives under the
     # dataset/subset directory so per-category graphs don't collide
     out = Path(ds.path) / "indices" / index_name / "knn_graph" / knng_name
-    g = KNNGraph.build(idx.vectors, n_neighbors=n_neighbors, device=device)
+    g = KNNGraph.build(idx.vectors, n_neighbors=n_neighbors, device=device, mesh=mesh)
     g.save(out)
     print(f"{ds.dataset_name}/{index_name}: {g.nvecs} vectors k={g.k} -> {out}")
     if k_intra:
@@ -60,19 +60,23 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="also build the whole-dataset graph")
     ap.add_argument("--sharded", action="store_true",
-                    help="build on a device mesh: not ported (ROADMAP item 16)")
+                    help="build over a mesh of every visible card")
     ap.add_argument("--factored_k_intra", type=int, default=0,
                     help="also write the diversified '<name>_factored' graph "
                          "(1 nearest per other frame + this many within-frame)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (a kNN build over a device mesh) is not ported yet: "
-            "multi-GPU is ROADMAP item 16")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu to build on the CPU")
+    mesh = None
+    if args.sharded:
+        from ..parallel.mesh import make_mesh
+
+        if not torch.cuda.is_available():
+            ap.error("--sharded builds over the visible cards, and there is none")
+        mesh = make_mesh()
+        device = mesh.primary
 
     from ..dataset import GlobalDataManager
 
@@ -82,7 +86,7 @@ def main(argv=None):
     if args.full or not (args.categories or args.all_categories):
         build_one(ds, args.index, knng_name=args.knng_name,
                   n_neighbors=args.n_neighbors, device=device,
-                  k_intra=args.factored_k_intra)
+                  k_intra=args.factored_k_intra, mesh=mesh)
 
     categories = args.categories or []
     if args.all_categories:
@@ -101,7 +105,7 @@ def main(argv=None):
             sub = ds.create_named_subset(sub_name, members)
         build_one(sub, args.index, knng_name=args.knng_name,
                   n_neighbors=min(args.n_neighbors, members.size - 1),
-                  device=device, k_intra=args.factored_k_intra)
+                  device=device, k_intra=args.factored_k_intra, mesh=mesh)
 
 
 if __name__ == "__main__":

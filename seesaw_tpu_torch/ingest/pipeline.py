@@ -9,6 +9,13 @@ host only decodes: each decoded image crosses once and `device_tiling`
 makes its tiles on the device. Each batch's vectors are copied back one
 batch behind, so the card encodes batch i+1 while the host takes batch i.
 
+With a `mesh` of several devices the extraction is data-parallel, as the
+JAX package's: the batch is rounded up to a multiple of the shard count S
+and split into S contiguous slices, the vision tower is replicated once per
+distinct device of the mesh, and each slice is encoded on its shard's
+device; the vectors come back in the single-device order. Both tilings take
+a mesh (the JAX package's device tiling does not).
+
 Kept from the JAX package: a dead decode or upload thread forwards its
 exception and the run raises (never hangs); undecodable images are skipped
 with a warning; the vectors are renormalized on the host
@@ -53,35 +60,56 @@ def _device_of(embedding) -> torch.device:
     return torch.device(getattr(embedding, "device", "cpu"))
 
 
+def replicate_embedding(embedding, mesh) -> list:
+    """The embedding on each shard's device of `mesh`: one copy of the
+    tower per distinct device (`replica`), the embedding itself where it
+    already is; a host model (no `replica`) serves every shard."""
+    if not hasattr(embedding, "replica"):
+        return [embedding] * mesh.size
+    on = {d: embedding.replica(d) for d in mesh.distinct}
+    return [on[d] for d in mesh.devices]
+
+
 class _BatchEncoder:
     """Encodes batches of CLIP-normalized tiles and collects the vectors on
-    the host one batch behind: batch i's copy is waited for only after batch
-    i+1 is enqueued."""
+    the host one batch behind: batch i's copies are waited for only after
+    batch i+1 is enqueued. With a mesh, each batch is split into contiguous
+    slices, slice s encoded by shard s's replica on its device."""
 
-    def __init__(self, embedding):
+    def __init__(self, embedding, mesh=None):
         self.embedding = embedding
+        self.replicas = (replicate_embedding(embedding, mesh)
+                         if mesh is not None and mesh.size > 1 else None)
         self.vectors: list[np.ndarray] = []
-        self._pending = None  # (host tensor or array, CUDA event or None)
+        self._pending = []  # [(host tensor or array, CUDA event or None)] of a batch
 
     def submit(self, pixels: torch.Tensor):
-        vecs = self.embedding.encode_image_batch(pixels)
-        event = None
-        if isinstance(vecs, torch.Tensor):
-            vecs = vecs.to(torch.float32)
-            if vecs.device.type == "cuda":
-                vecs = vecs.to("cpu", non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
+        if self.replicas is None:
+            parts = [(self.embedding, pixels)]
+        else:
+            per = -(-pixels.shape[0] // len(self.replicas))
+            parts = [(emb, pixels[s * per:(s + 1) * per].to(_device_of(emb)))
+                     for s, emb in enumerate(self.replicas) if s * per < pixels.shape[0]]
+        pending = []
+        for emb, px in parts:
+            vecs = emb.encode_image_batch(px)
+            event = None
+            if isinstance(vecs, torch.Tensor):
+                vecs = vecs.to(torch.float32)
+                if vecs.device.type == "cuda":
+                    vecs = vecs.to("cpu", non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+            pending.append((vecs, event))
         self._harvest()
-        self._pending = (vecs, event)
+        self._pending = pending
 
     def _harvest(self):
-        if self._pending is not None:
-            vecs, event = self._pending
+        for vecs, event in self._pending:
             if event is not None:
                 event.synchronize()
             self.vectors.append(np.asarray(vecs, dtype=np.float32))
-            self._pending = None
+        self._pending = []
 
     def finish(self) -> np.ndarray:
         """All vectors in submission order, renormalized on the host."""
@@ -117,16 +145,18 @@ def run_multiscale_extraction(
 ):
     """Returns (vectors (N, D), dbidx, zoom_level, boxes) sorted by dbidx.
 
-    The tiles are encoded on the embedding's device. tiling='device' makes
-    the pyramid and grids there (`ingest.device_tiling`): the host only
-    decodes, and the raw image is the only transfer."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel extraction over a mesh is not ported")
+    The tiles are encoded on the embedding's device, or data-parallel over
+    `mesh` (batches rounded up to a multiple of its size). tiling='device'
+    makes the pyramid and grids on the embedding's device
+    (`ingest.device_tiling`): the host only decodes, and the raw image is
+    the only transfer."""
+    if mesh is not None and mesh.size > 1:
+        batch_size = -(-batch_size // mesh.size) * mesh.size
     if tiling == "device":
         return _run_device_tiling_extraction(
             ds, embedding, tile_size=tile_size, factor=factor,
             min_tile_size=min_tile_size, batch_size=batch_size,
-            n_decode_threads=n_decode_threads, limit=limit,
+            n_decode_threads=n_decode_threads, limit=limit, mesh=mesh,
         )
     if tiling != "host":
         raise ValueError(f"unknown tiling {tiling!r}")
@@ -160,7 +190,7 @@ def run_multiscale_extraction(
     threading.Thread(target=producer, daemon=True).start()
 
     # cross-image batching: tiles of many images fill each batch
-    encoder = _BatchEncoder(embedding)
+    encoder = _BatchEncoder(embedding, mesh)
     buf_tiles, metas = [], []
     n_buf = 0
 
@@ -195,7 +225,7 @@ def run_multiscale_extraction(
 
 def _run_device_tiling_extraction(
     ds, embedding, *, tile_size, factor, min_tile_size, batch_size,
-    n_decode_threads, limit,
+    n_decode_threads, limit, mesh=None,
 ):
     """Decode on host threads (the native C++ libjpeg pool for JPEGs where it
     builds, PIL otherwise); an upload thread sends each decoded image to the
@@ -250,7 +280,7 @@ def _run_device_tiling_extraction(
     threading.Thread(target=producer, daemon=True).start()
     threading.Thread(target=uploader, daemon=True).start()
 
-    encoder = _BatchEncoder(embedding)
+    encoder = _BatchEncoder(embedding, mesh)
     buf_tiles, metas = [], []
     n_buf = 0
 
@@ -303,10 +333,9 @@ def create_multiscale_index(
     model_name resolves through `models.registry` (e.g. 'clip-vit-b32',
     'clip-vit-b32:<artifact dir>', 'hash-64') and is written into
     `info.json`; `embedding`, if given, encodes in its place (a model of
-    that name in another dtype). Optionally also builds the exact kNN graph
-    with the given neighbour count on `device`."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel extraction over a mesh is not ported")
+    that name in another dtype). With a `mesh`, the extraction is
+    data-parallel over it. Optionally also builds the exact kNN graph with
+    the given neighbour count on `device`."""
     if embedding is None:
         embedding = load_embedding(model_name, device)
     index_path = ds.index_path(index_name)
@@ -316,7 +345,7 @@ def create_multiscale_index(
         vectors, dbidx, zoom, boxes = run_multiscale_extraction(
             ds, embedding,
             tile_size=tile_size, factor=factor, min_tile_size=min_tile_size,
-            batch_size=batch_size, limit=limit, tiling=tiling,
+            batch_size=batch_size, limit=limit, tiling=tiling, mesh=mesh,
         )
         meta, _ = VectorMeta.from_arrays(dbidx, zoom, boxes)  # already sorted
         MultiscaleIndex(device="cpu", vectors=vectors, meta=meta).save(tmp, model_name)

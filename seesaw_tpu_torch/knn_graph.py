@@ -13,7 +13,9 @@ packages build the same weights from the same `forward.parquet`:
   dst_rank) rows including rank-0 self edges, the reference's format.
 
 `KNNGraph.build` runs the exact blocked build of `ops.knn` on an explicit
-device; `factor_neighbors` is the JAX package's numpy as it is.
+device, or over a mesh of devices (`parallel.sharded_graph.
+sharded_exact_knn`); `factor_neighbors` is the JAX package's numpy as it
+is.
 """
 from __future__ import annotations
 
@@ -69,14 +71,22 @@ class KNNGraph:
         return self.dst.shape[1]
 
     @staticmethod
-    def build(vectors, n_neighbors: int, block_size: int | None = None, *, device,
+    def build(vectors, n_neighbors: int, block_size: int | None = None, *, device=None,
               mesh=None) -> "KNNGraph":
         """Exact kNN graph of `vectors` (numpy or a tensor) built on `device`
-        (`ops.knn.exact_knn`). A multi-device mesh build is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("the mesh-sharded kNN build is not ported")
+        (`ops.knn.exact_knn`), or with a `mesh` of several devices the
+        sharded ring build over them (a one-device mesh builds on its
+        device)."""
+        if mesh is not None and mesh.size > 1:
+            from .parallel.sharded_graph import sharded_exact_knn
+
+            return KNNGraph(*sharded_exact_knn(vectors, n_neighbors, mesh, block_size))
         from .ops.knn import exact_knn
 
+        if mesh is not None:
+            device = mesh.primary
+        if device is None:
+            raise ValueError("KNNGraph.build needs a device or a mesh")
         return KNNGraph(*exact_knn(vectors, n_neighbors, block_size, device=device))
 
     def restrict_k(self, *, k: int) -> "KNNGraph":

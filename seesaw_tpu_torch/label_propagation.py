@@ -5,6 +5,11 @@ structure and reg_lambda, call `fit_transform` with labeled ids and values,
 prior (reg) values and an optional warm start. The bounds check matches the
 reference's invariant: scores stay within [min(0, prior_min),
 max(1, prior_max)].
+
+With a `mesh` of several devices the graph is row-sharded over them once
+(`parallel.sharded_graph.shard_graph`, cached with the weights) and each
+run is `parallel.sharded_graph.propagate_on_mesh`; the scores come back on
+the mesh's primary device, which is this propagation's `device`.
 """
 from __future__ import annotations
 
@@ -32,15 +37,22 @@ class LabelPropagation:
         weights: SymmetricWeights,
         *,
         reg_lambda: float,
-        device,
+        device=None,
         max_iter: int = 300,
         epsilon: float = 1e-5,
         verbose: int = 0,
         dispatch_iters: Optional[int] = 100,
+        mesh=None,
     ):
         assert reg_lambda >= 0
         self.weights = weights
         self.n = weights.nvecs
+        # a one-device mesh takes the single-device path
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if device is None:
+            if mesh is None:
+                raise ValueError("LabelPropagation needs a device or a mesh")
+            device = mesh.primary
         self.device = torch.device(device)
         self.reg_lambda = reg_lambda
         self.max_iter = max_iter
@@ -56,16 +68,31 @@ class LabelPropagation:
         shared by every session over the same weights)."""
         return self.weights.device_arrays(self.device)
 
+    def mesh_graph(self):
+        """The weights row-sharded over the mesh, made once per mesh."""
+        from .parallel.sharded_graph import shard_graph
+
+        key = ("mesh", self.mesh)
+        w = self.weights
+        g = w._device_cache.get(key)
+        if g is None:
+            g = w._device_cache[key] = shard_graph(self.mesh, w.nbr, w.w, w.degree)
+        return g
+
     def fit_transform_device(self, *, labels, is_labeled, reg_values, start) -> torch.Tensor:
         """`fit_transform` with all state already on the device: one
         segmented propagation, device scores out, its PropagationResult
         kept in `last_result`. No bounds check (the ranker applies it when
         a host consumer reads the scores)."""
-        res = propagate(
-            *self.graph(), reg_values, labels, is_labeled, start,
-            reg_lambda=float(self.reg_lambda), max_iter=self.max_iter,
-            epsilon=self.epsilon, dispatch_iters=self.dispatch_iters,
-        )
+        opts = dict(reg_lambda=float(self.reg_lambda), max_iter=self.max_iter,
+                    epsilon=self.epsilon, dispatch_iters=self.dispatch_iters)
+        if self.mesh is not None:
+            from .parallel.sharded_graph import propagate_on_mesh
+
+            res = propagate_on_mesh(self.mesh_graph(), reg_values, labels, is_labeled,
+                                    start, **opts)
+        else:
+            res = propagate(*self.graph(), reg_values, labels, is_labeled, start, **opts)
         self.last_result = res
         if self.verbose and not res.converged:
             print(f"warning: propagation did not converge after {res.n_iter} iters")

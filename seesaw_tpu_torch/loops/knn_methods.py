@@ -12,7 +12,10 @@ round stages its clicks, and the next `MultiscaleIndex.rank_by_scores` runs
 click scatter + propagation + ranking as one fused round
 (`ops.propagation.DeferredPropagation`). Host mirrors of the labels stay
 authoritative for `top_k` and analysis; a host consumer of the scores runs
-a staged round eagerly first.
+a staged round eagerly first. A ranker over a `mesh` (`LabelPropagationRanker2
+(mesh=)`, row-sharded propagation) does not defer, as in the JAX package:
+the staged round runs when its scores are asked for, and the index ranks
+the scores it gets.
 """
 from __future__ import annotations
 
@@ -245,12 +248,19 @@ class BaseLabelPropagationRanker:
         check_prior_bounds(cs, self.prior_scores)
         return cs
 
+    def _defer_available(self) -> bool:
+        """Whether a staged round may fuse into the next ranking."""
+        return True
+
     def current_scores_any(self):
         """Scores without a host read: the device tensor, or a
         DeferredPropagation marker when a round is staged (the next
-        `rank_by_scores` fuses it)."""
+        `rank_by_scores` fuses it; a ranker that does not defer runs the
+        round here)."""
         if self._needs_prop:
-            return DeferredPropagation(self)
+            if self._defer_available():
+                return DeferredPropagation(self)
+            return self._flush_propagation()
         return self._current_scores
 
     def top_k(self, k: Optional[int], unlabeled_only: bool = True):
@@ -267,12 +277,23 @@ class BaseLabelPropagationRanker:
 
 
 class LabelPropagationRanker2(BaseLabelPropagationRanker):
-    def __init__(self, *, weights: SymmetricWeights, device, verbose: int = 0,
-                 **other):
+    def __init__(self, *, weights: SymmetricWeights, device=None, verbose: int = 0,
+                 mesh=None, **other):
+        """`mesh`: propagate row-sharded over its devices; the ranker's
+        state lives on the mesh's primary device (the default `device`)."""
+        if device is None:
+            if mesh is None:
+                raise ValueError("LabelPropagationRanker2 needs a device or a mesh")
+            device = mesh.primary
         super().__init__(nvecs=weights.nvecs, device=device, **other)
         self.weights = weights
         self.lp = LabelPropagation(weights, reg_lambda=self.prior_weight,
-                                   device=device, max_iter=300, verbose=verbose)
+                                   device=device, max_iter=300, verbose=verbose,
+                                   mesh=mesh)
+
+    def _defer_available(self) -> bool:
+        # the fused round runs the one-launch Jacobi segment on one device
+        return self.lp.mesh is None
 
     def _propagate(self, start):
         scores = self.lp.fit_transform_device(

@@ -30,6 +30,7 @@ numbers for the same seed.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -545,6 +546,23 @@ class ClipEmbedding:
         model.load_state_dict({k: v.detach().to(device, copy=True)
                                for k, v in self.model.state_dict().items()}, assign=True)
         return model.requires_grad_(True)
+
+    def replica(self, device) -> "ClipEmbedding":
+        """This embedding on `device`: itself there, else a frozen copy of
+        the model on `device` sharing the tokenizer (the data-parallel
+        extraction's tower per device)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        with torch.device("meta"):
+            model = ClipModel(self.cfg)
+        model.load_state_dict({k: v.detach().to(device, copy=True)
+                               for k, v in self.model.state_dict().items()}, assign=True)
+        out = copy.copy(self)
+        out.device = device
+        out.model = model.eval().requires_grad_(False)
+        out._string_cache = {}
+        return out
 
     def from_string(self, *, string: str = None, str_list=None) -> np.ndarray:
         """Unit (D,) for `string` (cached), or (n, D) for `str_list` (not

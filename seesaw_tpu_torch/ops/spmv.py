@@ -9,7 +9,11 @@ the Pallas kernels `_spmv_kernel`, `_lane_gather_mul_kernel` and
 
 over the graph's own (N, Kp) arrays. On a CUDA tensor each wrapper launches
 the hand-written kernel in `csrc/knn_spmv.cu` or raises; on a CPU tensor it
-runs its plain PyTorch version beside it.
+runs its plain PyTorch version beside it. `knn_spmv(row_block=True)` takes
+R rows of a row-sharded graph with global column ids over the whole
+gathered f (the mesh's propagation, `parallel.sharded_graph`): the kernel
+gathers f by column id and sizes its grid by the row count, so the form
+needs no other source.
 
 The TPU's windowed layout (int16 lane slabs, window selection, RCM
 relabeling, routed overflow) exists to feed a lane shuffle in VMEM and is not
@@ -59,13 +63,15 @@ def _library():
     return _lib
 
 
-def _check_graph(f, nbr, w):
+def _check_graph(f, nbr, w, *, row_block: bool = False):
+    """A graph (N, Kp) over f (N,); with `row_block`, R rows of a sharded
+    graph with global column ids over the whole (gathered) f, R <= len(f)."""
     if nbr.dim() != 2 or w.shape != nbr.shape or f.dim() != 1:
         raise ValueError(
             f"expected nbr, w (N, Kp) and f (N,): got nbr {tuple(nbr.shape)}, "
             f"w {tuple(w.shape)}, f {tuple(f.shape)}"
         )
-    if f.shape[0] != nbr.shape[0]:
+    if f.shape[0] < nbr.shape[0] or (f.shape[0] != nbr.shape[0] and not row_block):
         raise ValueError(f"f has {f.shape[0]} rows, the graph {nbr.shape[0]}")
     if nbr.dtype != torch.int32 or w.dtype != torch.float32 or f.dtype != torch.float32:
         raise TypeError("nbr must be int32, w and f float32")
@@ -82,23 +88,28 @@ def _check_device(tensors):
     return dev
 
 
-def knn_spmv_plain(f: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def knn_spmv_plain(f: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, *,
+                   row_block: bool = False) -> torch.Tensor:
     """Plain PyTorch version: gather, multiply, row sum; -1 slots count 0."""
-    _check_graph(f, nbr, w)
+    _check_graph(f, nbr, w, row_block=row_block)
     gathered = torch.where(nbr >= 0, f[nbr.clamp(min=0).long()], 0.0)
     return (w * gathered).sum(dim=1)
 
 
-def knn_spmv(f: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def knn_spmv(f: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, *,
+             row_block: bool = False) -> torch.Tensor:
     """(N,) f32 W f. f (N,) f32; nbr (N, Kp) int32 with -1 padding; w (N, Kp)
-    f32. CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise."""
+    f32. With `row_block`, nbr and w are R rows of a row-sharded graph
+    whose column ids index the whole gathered f (R <= len(f)), and the
+    result is those rows' (R,) sums: the kernel gathers f by column id and
+    sizes its grid by the row count. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
     if f.device.type == "cpu":
-        return knn_spmv_plain(f, nbr, w)
-    _check_graph(f, nbr, w)
+        return knn_spmv_plain(f, nbr, w, row_block=row_block)
+    _check_graph(f, nbr, w, row_block=row_block)
     dev = _check_device([f, nbr, w])
     fn = _library().seesaw_knn_spmv
-    out = torch.empty(f.shape[0], dtype=torch.float32, device=dev)
+    out = torch.empty(nbr.shape[0], dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(f.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(),

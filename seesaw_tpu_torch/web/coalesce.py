@@ -11,8 +11,10 @@ the scan's sums; `tests/test_torch_batch_query.py`).
 
 Leader election, no background thread: the first thread to open a
 (topk, shortlist, aug...) group sleeps the window, drains the group and
-executes it; followers wait on their event. The index's mesh branch is not
-ported (`MultiscaleIndex.from_path` raises on `mesh` and `sharded`).
+executes it; followers wait on their event. Over a mesh-sharded index the
+batch is one `parallel.sharded_index.sharded_query_batch_program`: each
+shard's (Ns, D) @ (D, Q) product, the per-query cutoffs and the merge, and
+each session's per-shard masks are committed back.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import frame_scoring
+from ..parallel.sharded_index import sharded_query_batch_program
 
 
 class _Req:
@@ -149,8 +152,18 @@ class QueryCoalescer:
         # each session's mask stays on the device across clicks; only the
         # click's newly excluded frame ordinals ride in
         excl = [idx._device_exclusion(r.exclude) for r in chunk]
-        masks = torch.stack([m for m, _, _ in excl])  # (Q, F), a new tensor
         new_ids = torch.stack([ni for _, ni, _ in excl])  # (Q, M)
+        if idx._sharded is not None:
+            # each shard's (Q, Fs) stack of the sessions' masks
+            masks = [torch.stack(parts) for parts in zip(*(m for m, _, _ in excl))]
+            res, new_masks = sharded_query_batch_program(idx._sharded, qs, masks, new_ids,
+                                                         **rank)
+            results = idx._format_results(res)
+            for i, r in enumerate(chunk):
+                idx._commit_exclusion(excl[i][2], [m[i].clone() for m in new_masks])
+                r.result = results[i]
+            return
+        masks = torch.stack([m for m, _, _ in excl])  # (Q, F), a new tensor
         if idx._frame_scale is not None:
             # int8 with per-frame scales: the tile max over the integer dots
             res, new_masks = frame_scoring.query_program_batch_framescale_incr(

@@ -319,8 +319,9 @@ def test_coalesced_rounds_stay_incremental(monkeypatch, device_dtype):
 def test_from_path_coalesces_and_sessions_share_one_index(tmp_path):
     """`coalesce_ms` makes `from_path` return a CoalescingIndex; sessions
     on one root share it through the loader's cache, and their concurrent
-    re-ranks merge into batched scans with no repeats. Mesh options still
-    raise."""
+    re-ranks merge into batched scans with no repeats. With a `mesh` the
+    coalescing index wraps the sharded index; `sharded=True` asks for every
+    visible card, so without one it is refused."""
     from synth import QSTR, build_synthetic_root
 
     from seesaw_tpu_torch import GlobalDataManager, IndexSpec, SessionParams, make_session
@@ -331,9 +332,14 @@ def test_from_path_coalesces_and_sessions_share_one_index(tmp_path):
     path = gdm.get_dataset("shared").index_path("multiscale")
     assert isinstance(MultiscaleIndex.from_path(path, device="cpu", coalesce_ms=5),
                       CoalescingIndex)
-    for opt in ("mesh", "sharded"):
-        with pytest.raises(NotImplementedError):
-            MultiscaleIndex.from_path(path, device="cpu", coalesce_ms=5, **{opt: True})
+    from seesaw_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * 2)
+    ci = MultiscaleIndex.from_path(path, device="cpu", coalesce_ms=5, mesh=mesh)
+    assert isinstance(ci, CoalescingIndex) and ci.mesh == mesh
+    if not torch.cuda.is_available():
+        with pytest.raises(AssertionError):
+            MultiscaleIndex.from_path(path, coalesce_ms=5, sharded=True)
 
     def params():
         return SessionParams(

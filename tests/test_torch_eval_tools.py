@@ -9,7 +9,8 @@ CPU at tiny sizes:
   `scripts/extract_gt_vectors.py` on a small `clip-custom` root (the JAX side
   reaches its Pallas attention in interpret mode);
 - `python -m seesaw_tpu_torch.ingest.make_knn_graphs_batch` against
-  `scripts/make_knn_graphs_batch.py`, and its `--sharded` refused.
+  `scripts/make_knn_graphs_batch.py`, and its `--sharded` refused without
+  a card.
 
 Tolerances: session hit indices and dbidxs equal (loops without a fitted
 probe; `log_reg2` as tests/test_torch_session.py holds it, dbidxs equal);
@@ -249,9 +250,24 @@ def test_make_knn_graphs_batch_matches_jax_script(two_roots):
 
 
 def test_sharded_knn_build_is_refused(synth_root):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        make_knn_graphs_batch.main(["--root", synth_root, "--dataset", "synth", "--sharded",
-                                    "--device", "cpu"])
+    """The name predates the mesh's port: `--sharded` builds over every
+    visible card, so without one it is refused with a usage error; with
+    one, the graph it saves equals the single-device build's (the mesh
+    build itself is held against JAX in `tests/test_torch_sharded_graph.
+    py`)."""
+    import torch
+
+    argv = ["--root", synth_root, "--dataset", "synth", "--sharded", "--knng_name", "mesh"]
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            make_knn_graphs_batch.main(argv + ["--device", "cpu"])
+        return
+    make_knn_graphs_batch.main(argv)
+    make_knn_graphs_batch.main(["--root", synth_root, "--dataset", "synth", "--knng_name",
+                                "one", "--device", "cpu"])
+    base = Path(synth_root) / "data/synth/indices/multiscale/knn_graph"
+    a, b = (KNNGraph.from_file(base / n) for n in ("mesh", "one"))
+    assert_knn_close(a.dst, a.dist, b.dst, b.dist, 1e-6)
 
 
 @pytest.mark.parametrize("cli,argv", [

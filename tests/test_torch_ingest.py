@@ -303,11 +303,29 @@ def test_a_dead_stage_raises(roots, model, monkeypatch):
 
 
 def test_mesh_is_not_ported(roots, model):
+    """The name predates the mesh's port: the data-parallel extraction over
+    a 3-shard CPU mesh (batches rounded up to 18, split into slices) gives
+    the single-device extraction's rows in the same order, vectors within
+    rtol 1e-5 / atol 1e-6 (f32 sums of other batch shapes), in both
+    tilings; `KNNGraph.build(mesh=)` gives the single-device graph
+    (`tests/test_torch_sharded_graph.py` holds both against JAX)."""
+    from seesaw_tpu_torch.parallel.mesh import make_mesh
+
     _, tds_ = roots
-    with pytest.raises(NotImplementedError):
-        tpipe.run_multiscale_extraction(tds_, load_embedding(model, "cpu"), mesh=object())
-    with pytest.raises(NotImplementedError):
-        KNNGraph.build(np.eye(4, dtype=np.float32), 2, device="cpu", mesh=object())
+    emb = load_embedding(model, "cpu")
+    mesh = make_mesh(devices=["cpu"] * 3)
+    for tiling in ("host", "device"):
+        v_w, *meta_w = _extract(tpipe, tds_, emb, tiling)
+        v_g, *meta_g = tpipe.run_multiscale_extraction(
+            tds_, emb, batch_size=16, n_decode_threads=2, tiling=tiling, mesh=mesh, **TILE)
+        for g, w in zip(meta_g, meta_w):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_allclose(v_g, v_w, rtol=1e-5, atol=1e-6)
+    V = np.eye(4, dtype=np.float32) + 0.1
+    g = KNNGraph.build(V, 2, mesh=mesh)
+    one = KNNGraph.build(V, 2, device="cpu")
+    np.testing.assert_array_equal(g.dst, one.dst)
+    np.testing.assert_allclose(g.dist, one.dist, atol=1e-6)
 
 
 def test_infer_coarse_vectors_equals_jax():
