@@ -209,11 +209,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    f. `parallel.dryrun` at 4 shards on the card: K5 and K6 in its
       data-parallel fine-tune step, a finite loss;
    g. `init_multihost` at world size 1 over NCCL, one `all_reduce`.
+14. the mesh across processes (`make_mesh(devices=, group=)`): 2
+    processes x 2 shards, started with torch.multiprocessing (spawn), each
+    given CUDA IPC views of this process's arrays (no second copy of an
+    index), joined by gloo with both on cuda:0: NCCL refuses two ranks on
+    one GPU, so the collectives cross host memory; a-b run right after 13c,
+    c-d after 13g:
+   a. 13a's queries over the bf16 and the int8 index (each process slicing
+      its shards out of the shared matrix), 13a's tie (its two frames in
+      different processes) and 13b's Q = 16 batch: dbidxs and scores
+      bit-equal to 13a's and 13b's; K1 once per local shard per query; p50
+      ms and the collectives' share;
+   b. 13c's knn_prop2 rounds, cold and warm: dbidxs, steps, done and scores
+      bit-equal to 13c's; the processes' knn_spmv launches add up to 13c's;
+      ms a propagating round and the collectives' share;
+   c. 13d's ring kNN build: ids equal to 13d's;
+   d. `python -m seesaw_tpu_torch.parallel.dryrun --processes 2`: every
+      part in both processes; the fine-tune step's loss and parameters
+      within 2e-4 of 13f's.
+   With two cards or more it runs again over NCCL, one process a card;
+   with one, a line says that it did not, and why.
 
 The line before the last is the kernel record (JSON); the last line is
-{"ok": true, "device": {...}}; phase 10's, 11's, 12's and 13's figures
-that are no kernel's print on their own JSON lines before the kernel
-record (13's on a `{"multi_gpu": ...}` line).
+{"ok": true, "device": {...}}; phase 10's, 11's, 12's, 13's and 14's
+figures that are no kernel's print on their own JSON lines before the
+kernel record (13's on a `{"multi_gpu": ...}` line, 14's on
+`{"process_mesh": ...}` and `{"process_mesh_vs_in_process": ...}`).
 The check that no `seesaw_tpu` module, jax, flax or optax was imported
 runs after every phase (the servers' threads import lazily). Without a
 CUDA device, or without the package beside this script, it exits non-zero
@@ -3022,7 +3043,7 @@ def mesh_queries(idx, m_idx, name, card) -> dict:
     mesh = m_idx.mesh
     rng = np.random.default_rng(13)
     ex_m, ex_o = BitMap(), BitMap()
-    m_ms, o_ms, worst, launched = [], [], 0.0, 0
+    m_ms, o_ms, worst, launched, results = [], [], 0.0, 0, []
     for i in range(MESH_QUERIES):
         if i == MESH_REBUILD_AT:
             jump = rng.choice(idx.meta.frame_dbidx, MESH_REBUILD_FRAMES, replace=False)
@@ -3045,6 +3066,7 @@ def mesh_queries(idx, m_idx, name, card) -> dict:
         a, b = ([x["score"] for x in r["activations"]] for r in (got, want))
         np.testing.assert_allclose(a, b, **MESH_TOL)
         worst = max(worst, float(np.abs(np.subtract(a, b)).max(initial=0.0)))
+        results.append((got["dbidxs"].tolist(), a))
         ex_m.update(got["dbidxs"])
         ex_o.update(want["dbidxs"])
     if launched != MESH_SHARDS * MESH_QUERIES:
@@ -3055,15 +3077,17 @@ def mesh_queries(idx, m_idx, name, card) -> dict:
            "one_device_p50_ms": float(np.median(o_ms)), "sharded_ms": m_ms,
            "one_device_ms": o_ms}
     log(f"[{card}] 13a {name} 10M x 512, {MESH_SHARDS} shards: {json.dumps(rec)}")
+    rec["results"] = results  # each query's dbidxs and scores, for phase 14a
     return rec
 
 
 def mesh_cutoff_tie(idx, m_idx, card) -> dict:
     """Phase 13a: a tie planted at the global shortlist cutoff across two
-    shards. The frame at the cutoff (rank SHORTLIST under K1's maxima) has
-    its tiles copied onto a frame of another shard below it, so both hold
-    the same maximum; with topk = shortlist the sharded result must keep
-    the lower frame id only, as one device does. The rows are restored."""
+    shards, which phase 14's layout puts in different processes. The frame
+    at the cutoff (rank SHORTLIST under K1's maxima) has its tiles copied
+    onto a frame of another process's shard below it, so both hold the
+    same maximum; with topk = shortlist the sharded result must keep the
+    lower frame id only, as one device does. The rows are restored."""
     import torch
 
     from seesaw_tpu_torch.ops import fused_scoring as fs
@@ -3076,7 +3100,8 @@ def mesh_cutoff_tie(idx, m_idx, card) -> dict:
     fmax = fs.fused_frame_max(idx._V, idx._valid, none, qt, idx._row_scale).cpu().numpy()
     order = np.argsort(-fmax, kind="stable")
     c = int(order[SHORTLIST - 1])
-    t = next(int(f) for f in order[SHORTLIST + 10:] if f // Fs != c // Fs)
+    t = next(int(f) for f in order[SHORTLIST + 10:]
+             if f // Fs // P14_LOCAL != c // Fs // P14_LOCAL)
     rc, rt = slice(c * T, (c + 1) * T), slice(t * T, (t + 1) * T)
     s_t, lt = t // Fs, slice((t % Fs) * T, (t % Fs + 1) * T)
     arrays = [(idx._V, sh.V[s_t])] + ([(idx._row_scale, sh.row_scale[s_t])]
@@ -3106,6 +3131,7 @@ def mesh_cutoff_tie(idx, m_idx, card) -> dict:
     rec = {"frames": [c, t], "shards": [c // Fs, t // Fs], "kept": int(keep)}
     log(f"[{card}] 13a cutoff tie across shards {rec['shards']}: frames {c} and {t} tie "
         f"at rank {SHORTLIST}; sharded == one device, frame {min(c, t)} kept")
+    rec["results"] = (got["dbidxs"].tolist(), [x["score"] for x in got["activations"]])
     return rec
 
 
@@ -3141,6 +3167,8 @@ def mesh_batch(idx, m_idx, dev, gen, card) -> dict:
 
     got = run(qs, mesh_masks(sh, excl))
     err = check_batch(got, batch_fn(idx)(qs, excl), "13b sharded batch vs one device")
+    ref = {"qs": qs, "excl": excl, "frame_ids": got.frame_ids.clone(),
+           "frame_scores": got.frame_scores.clone()}  # for phase 14a
 
     def chain(qss):
         masks = mesh_masks(sh, excl)
@@ -3168,7 +3196,7 @@ def mesh_batch(idx, m_idx, dev, gen, card) -> dict:
     rec = {"Q": Q, "max_abs_diff_vs_one_device": err, "dispatch_ms": min(ms),
            "dispatch_ms_runs": ms}
     log(f"[{card}] 13b coalesced batch over the mesh ({idx.device_dtype}): {json.dumps(rec)}")
-    return rec
+    return rec, ref
 
 
 def mesh_knnprop(idx, m_idx, weights, dev, card) -> dict:
@@ -3184,7 +3212,7 @@ def mesh_knnprop(idx, m_idx, weights, dev, card) -> dict:
     from seesaw_tpu_torch.utils import rounds as R
 
     mesh = m_idx.mesh
-    out = {}
+    out, ref = {}, {"rounds": []}  # ref: what phase 14b is held to
     spmv.knn_spmv.launches = 0
     total = 0
     for warm in (False, True):
@@ -3193,12 +3221,13 @@ def mesh_knnprop(idx, m_idx, weights, dev, card) -> dict:
                                          **R.KNNPROP_OPTIONS)
         q = np.random.default_rng(15).normal(size=DIM).astype(np.float32)
         base = idx.score_device(q / np.linalg.norm(q))
+        ref["base"] = base
         r_one.set_base_scores(base)
         r_mesh.set_base_scores(base)
         rng = np.random.default_rng(16)
         ret_m, ret_o = BitMap(), BitMap()
         rec = dict(round_ms=[], steps=[], segments=[], host_reads=[], launches=[],
-                   max_abs_err=[])
+                   max_abs_err=[], propagating_round_ms=[])
         c = r_mesh.lp.dispatch_iters
         for r in range(MESH_ROUNDS):
             prev = r_mesh.last_result
@@ -3235,8 +3264,12 @@ def mesh_knnprop(idx, m_idx, weights, dev, card) -> dict:
                 if reads > 1 + segs:
                     raise AssertionError(f"13c round {r}: {reads} host reads, {segs} segments")
                 for k, v in (("steps", pm.n_iter), ("segments", segs), ("host_reads", reads),
-                             ("launches", launched), ("max_abs_err", err)):
+                             ("launches", launched), ("max_abs_err", err),
+                             ("propagating_round_ms", rec["round_ms"][-1])):
                     rec[k].append(v)
+            ref["rounds"].append({"warm": warm, "dbidxs": got} if pm is prev else {
+                "warm": warm, "dbidxs": got, "steps": pm.n_iter, "done": pm.converged,
+                "scores": r_mesh._current_scores.clone()})
             ret_m.update(got)
             ret_o.update(want)
             rows = idx.meta.frame_starts[np.searchsorted(idx.meta.frame_dbidx, got)]
@@ -3252,7 +3285,7 @@ def mesh_knnprop(idx, m_idx, weights, dev, card) -> dict:
     if spmv.knn_spmv.launches != total:
         raise AssertionError("13c: knn_spmv launched outside the mesh rounds")
     out["knn_spmv_launches"] = total
-    return out
+    return out, ref
 
 
 def mesh_knn(mesh, dev, card) -> dict:
@@ -3277,7 +3310,7 @@ def mesh_knn(mesh, dev, card) -> dict:
     rec = {"rows": MESH_KNN_N, "k": MESH_KNN_K, "sharded_s": t1 - t0, "one_device_s": t2 - t1,
            "ids_equal_share": float((ids_m == ids_o).mean()), **chk}
     log(f"[{card}] 13d sharded exact kNN {MESH_KNN_N}x512 K={MESH_KNN_K}: {json.dumps(rec)}")
-    return rec
+    return rec, {"X": X, "ids": ids_m, "dist": d_m}  # for phase 14c
 
 
 def mesh_ingest(mesh, dev, card, clip_params, frames) -> dict:
@@ -3333,7 +3366,8 @@ def mesh_dryrun(card) -> dict:
     data-parallel step, a finite loss."""
     from seesaw_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    out = dryrun_multichip(MESH_SHARDS, "cuda")
+    P14_DIR.mkdir(parents=True, exist_ok=True)
+    out = dryrun_multichip(MESH_SHARDS, "cuda", params_out=P14_DIR / "dryrun_13f.npz")
     b = out["b_finetune"]
     if not (b["launches"]["pair_attention"] > 0 and b["launches"]["pair_attention_bwd"] > 0
             and np.isfinite(b["loss"])):
@@ -3397,16 +3431,20 @@ def mesh_serving_path(idx, weights, dev, gen, card):
 
     bf16 = R.device_index(N_VECTORS, DIM, "bfloat16", device=dev, generator=gen)
     recs["queries_bfloat16"] = mesh_queries(bf16, sharded(bf16), "bfloat16", card)
-    del bf16
-    torch.cuda.empty_cache()
     m_idx = sharded(idx)
     recs["queries_int8"] = mesh_queries(idx, m_idx, "int8 row scales", card)
     k1 = recs["queries_bfloat16"]["k1_launches"] + recs["queries_int8"]["k1_launches"]
     recs["cutoff_tie"] = mesh_cutoff_tie(idx, m_idx, card)
-    recs["batch"] = mesh_batch(idx, m_idx, dev, gen, card)
-    recs["knn_prop2"] = mesh_knnprop(idx, m_idx, weights, dev, card)
+    recs["batch"], batch_ref = mesh_batch(idx, m_idx, dev, gen, card)
+    recs["knn_prop2"], prop_ref = mesh_knnprop(idx, m_idx, weights, dev, card)
     recs["seconds"] = time.perf_counter() - t0
-    return recs, {"fused_frame_max": k1, "knn_spmv": recs["knn_prop2"]["knn_spmv_launches"]}
+    # what phase 14a-b holds the process mesh to: 13a-c's results over these indexes
+    ref = {"bf16": bf16, "queries_bfloat16": recs["queries_bfloat16"].pop("results"),
+           "queries_int8": recs["queries_int8"].pop("results"),
+           "tie": recs["cutoff_tie"]["frames"], "tie_results": recs["cutoff_tie"].pop("results"),
+           "batch": batch_ref, "knn_prop2": prop_ref,
+           "knn_prop2_launches": recs["knn_prop2"]["knn_spmv_launches"]}
+    return recs, {"fused_frame_max": k1, "knn_spmv": recs["knn_prop2"]["knn_spmv_launches"]}, ref
 
 
 def mesh_offline_path(dev, card, clip_params, frames):
@@ -3414,8 +3452,8 @@ def mesh_offline_path(dev, card, clip_params, frames):
     records and each kernel's launches on these mesh paths."""
     t0 = time.perf_counter()
     mesh, how = card_mesh()
-    recs = {"knn": mesh_knn(mesh, dev, card),
-            "ingest": mesh_ingest(mesh, dev, card, clip_params, frames),
+    knn, knn_ref = mesh_knn(mesh, dev, card)
+    recs = {"knn": knn, "ingest": mesh_ingest(mesh, dev, card, clip_params, frames),
             "dryrun": mesh_dryrun(card), "multihost": multihost_nccl(dev, card)}
     recs["seconds"] = time.perf_counter() - t0
     d = recs["dryrun"]
@@ -3423,7 +3461,524 @@ def mesh_offline_path(dev, card, clip_params, frames):
                 "dryrun": {k: sum(d[p]["launches"][k] for p in d if isinstance(d[p], dict)
                                   and "launches" in d[p])
                            for k in d["a_retrieval"]["launches"]}}
-    return recs, launches
+    return recs, launches, knn_ref
+
+
+# -- phase 14 ----------------------------------------------------------------
+P14_PROCESSES, P14_LOCAL = 2, 2  # phase 13's 4 shards: 2 in each of 2 processes
+P14_DIR = ROOT / "build" / "seesaw_tpu_torch" / "phase14"
+P14_TIMEOUT_S = 300.0  # a process of the mesh that has not finished by then has hung
+
+
+def p14_runs() -> list:
+    """Phase 14's runs: (backend, each process's card indices). gloo, both
+    processes on cuda:0, since NCCL refuses two ranks on one GPU ("Duplicate
+    GPU detected"); with two cards or more, NCCL too, one process a card."""
+    import torch
+
+    runs = [("gloo", [[0] * P14_LOCAL] * P14_PROCESSES)]
+    if torch.cuda.device_count() >= P14_PROCESSES:
+        runs.append(("nccl", [[r] * P14_LOCAL for r in range(P14_PROCESSES)]))
+    return runs
+
+
+def p14_spawn(target, backend, devices, payload) -> list:
+    """Start the phase's processes (torch.multiprocessing, spawn: the CUDA
+    tensors in `payload` reach them as IPC handles of this process's
+    memory, not as copies), take each rank's record from a queue, and stop
+    them all at the first failure or at P14_TIMEOUT_S. Returns the records
+    in rank order."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, port, backend, devices[r], payload, q))
+             for r in range(P14_PROCESSES)]
+    for p in procs:
+        p.start()
+    recs, deadline = {}, time.monotonic() + P14_TIMEOUT_S
+    try:
+        while len(recs) < len(procs):
+            try:
+                rank, rec = q.get(timeout=1.0)
+                recs[rank] = rec
+            except queue.Empty:
+                failed = [(r, p.exitcode) for r, p in enumerate(procs)
+                          if p.exitcode is not None and r not in recs]
+                if failed or time.monotonic() > deadline:
+                    raise AssertionError(f"phase 14 {target.__name__} over {backend}: processes "
+                                         f"(rank, exit code) {failed} failed or timed out")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    import torch
+
+    torch.cuda.ipc_collect()  # the shared blocks the processes released
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"phase 14 {target.__name__}: exit codes {codes}")
+    return [recs[r] for r in range(P14_PROCESSES)]
+
+
+def p14_join(rank, port, backend, devices):
+    """In a phase-14 process: the port on the path, TF32 off as in the
+    parent, the group joined, this process's shards of the global mesh."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import torch.distributed as dist
+
+    from seesaw_tpu_torch.parallel.mesh import make_mesh
+    from seesaw_tpu_torch.parallel.multihost import init_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    local = [torch.device("cuda", d) for d in devices]
+    torch.cuda.set_device(local[0])
+    init_multihost(f"127.0.0.1:{port}", P14_PROCESSES, rank, backend=backend)
+    return make_mesh(devices=local, group=dist.group.WORLD)
+
+
+def p14_leave(q, rank, rec, payload):
+    """Release the parent's shared tensors, leave the group and hand the
+    record to the parent; no `seesaw_tpu` module, jax, flax or optax may
+    have been imported."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from seesaw_tpu_torch.parallel.multihost import shutdown_multihost
+
+    payload.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    dist.barrier()
+    shutdown_multihost()
+    rec["imported"] = [m for m in sys.modules if m in ("jax", "flax", "optax")
+                       or m == "seesaw_tpu" or m.startswith("seesaw_tpu.")]
+    q.put((rank, rec))
+
+
+class CollectiveClock:
+    """Host ms inside the process mesh's collectives (`parallel.mesh`'s
+    gather and reduce, the results' landing, and the ring step), each
+    bracketed by synchronizes, so that waiting for earlier kernels is not
+    counted; patched in for a `with` block. The synchronizes slow the run
+    they clock, so phase 14 clocks a pass of its own (`p14_clocked`) and
+    keeps the times of a pass without the clock."""
+
+    def __init__(self, modules_and_names):
+        self.targets = modules_and_names
+        self.ms = 0.0
+
+    def __enter__(self):
+        import torch
+
+        self.saved = []
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def timed(*a, _fn=fn, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t0) * 1e3
+                return out
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def p14_clocked(run, targets=None):
+    """`run(clock)` again, inside a CollectiveClock (by default over
+    `parallel.mesh`'s gather, reduce and landing): the pass that measures
+    the collectives' ms. The kernels it launches are not the main path's:
+    the launch counters are put back after it."""
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops import spmv
+    from seesaw_tpu_torch.parallel import mesh as M
+
+    saved = fs.fused_frame_max.launches, spmv.knn_spmv.launches
+    with CollectiveClock(targets or [(M, "_gathered"), (M, "_reduced"), (M, "_land")]) as clock:
+        out = run(clock)
+    fs.fused_frame_max.launches, spmv.knn_spmv.launches = saved
+    return out
+
+
+def p14_queries(m_idx, meta, mesh, clock=None) -> dict:
+    """13a's query sequence (the same seeds, the same rebuild jump) over
+    the process mesh: each query's dbidxs and scores and host ms (ending in
+    a sync); with a `clock`, the collectives' ms and their share."""
+    from seesaw_tpu_torch.runtime.bitmap import BitMap
+
+    rng = np.random.default_rng(13)
+    ex, ms, results = BitMap(), [], []
+    for i in range(MESH_QUERIES):
+        if i == MESH_REBUILD_AT:
+            ex.update(rng.choice(meta.frame_dbidx, MESH_REBUILD_FRAMES, replace=False))
+        q = rng.normal(size=DIM).astype(np.float32)
+        sync_mesh(mesh)
+        t0 = time.perf_counter()
+        got = m_idx.query(vector=q, topk=BATCH, shortlist_size=SHORTLIST, exclude=ex)
+        sync_mesh(mesh)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        results.append((got["dbidxs"].tolist(), [x["score"] for x in got["activations"]]))
+        ex.update(got["dbidxs"])
+    out = {"results": results, "p50_ms": float(np.median(ms)), "ms": ms}
+    if clock is not None:
+        out.update(collectives_ms=clock.ms, collectives_share=clock.ms / sum(ms))
+    return out
+
+
+def p14_tie(m_idx, mesh, tie) -> tuple:
+    """13a's planted cutoff tie: the process holding frame t's shard copies
+    frame c's rows (and scales) into it, every process queries, and the
+    rows are restored (on one card the shard is a view of the parent's
+    index). Returns 13a's tie query's (dbidxs, scores)."""
+    import torch
+    import torch.distributed as dist
+
+    sh = m_idx._sharded
+    T, Fs = sh.tile_bound, sh.n_frames_local
+    j = tie["t"] // Fs - mesh.local_shards.start
+    lt = slice((tie["t"] % Fs) * T, (tie["t"] % Fs + 1) * T)
+    mine = 0 <= j < len(sh.V)
+    if mine:
+        saved = (sh.V[j][lt].clone(), sh.row_scale[j][lt].clone())
+        sh.V[j][lt] = tie["rows"].to(sh.V[j].device)
+        sh.row_scale[j][lt] = tie["scale"].to(sh.V[j].device)
+    torch.cuda.synchronize()
+    dist.barrier()
+    try:
+        q = np.random.default_rng(131).normal(size=DIM).astype(np.float32)
+        got = m_idx.query(vector=q, topk=SHORTLIST, shortlist_size=SHORTLIST)
+    finally:
+        if mine:
+            sh.V[j][lt], sh.row_scale[j][lt] = saved
+        torch.cuda.synchronize()
+        dist.barrier()
+    return got["dbidxs"].tolist(), [x["score"] for x in got["activations"]]
+
+
+def p14_batch(m_idx, mesh, batch) -> dict:
+    """13b's Q = 16 batch program over the process mesh on 13b's inputs:
+    ids and scores against 13b's, host ms of a dispatch (p50 of 5)."""
+    import torch
+
+    from seesaw_tpu_torch.parallel.sharded_index import sharded_query_batch_program
+
+    sh = m_idx._sharded
+    qs = batch["qs"]
+    none = torch.full((qs.shape[0], 1), -1, dtype=torch.int64, device=mesh.primary)
+    ms = []
+    for _ in range(5):
+        sync_mesh(mesh)
+        t0 = time.perf_counter()
+        res = sharded_query_batch_program(sh, qs, mesh_masks(sh, batch["excl"]), none,
+                                          shortlist_size=SHORTLIST, topk=TOPK)[0]
+        sync_mesh(mesh)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"Q": int(qs.shape[0]), "dispatch_p50_ms": float(np.median(ms)), "dispatch_ms": ms,
+            "ids_equal": torch.equal(res.frame_ids.to(qs.device), batch["frame_ids"]),
+            "scores_equal": torch.equal(res.frame_scores.to(qs.device), batch["frame_scores"])}
+
+
+def p14_knnprop(m_idx, mesh, meta, graph, ref, clock=None) -> dict:
+    """13c's knn_prop2 rounds, cold then warm, over the process mesh from
+    13c's base scores and clicks: each round's dbidxs, and each propagating
+    round's steps, done and scores, against 13c's; ms a round, and with a
+    `clock` the collectives' ms in it and their share."""
+    import torch
+
+    from seesaw_tpu_torch.knn_graph import SymmetricWeights
+    from seesaw_tpu_torch.loops.knn_methods import LabelPropagationRanker2
+    from seesaw_tpu_torch.runtime.bitmap import BitMap
+    from seesaw_tpu_torch.utils import rounds as R
+
+    weights = SymmetricWeights(nbr=graph["nbr"], w=graph["w"], degree=graph["degree"])
+    want = iter(ref["rounds"])
+    rounds = []
+    for warm in (False, True):
+        r_mesh = LabelPropagationRanker2(weights=weights, mesh=mesh, warm_start=warm,
+                                         **R.KNNPROP_OPTIONS)
+        r_mesh.set_base_scores(ref["base"])
+        rng = np.random.default_rng(16)
+        ret = BitMap()
+        for r in range(MESH_ROUNDS):
+            w = next(want)
+            prev, before = r_mesh.last_result, clock.ms if clock is not None else 0.0
+            sync_mesh(mesh)
+            t0 = time.perf_counter()
+            res = m_idx.rank_by_scores(r_mesh.current_scores_any(), topk=BATCH,
+                                       shortlist_size=SHORTLIST, exclude=ret)
+            sync_mesh(mesh)
+            got = res["dbidxs"].tolist()
+            rec = {"warm": warm, "round_ms": (time.perf_counter() - t0) * 1e3,
+                   "dbidxs_equal": got == w["dbidxs"]}
+            if clock is not None:
+                rec["collectives_ms"] = clock.ms - before
+            pm = r_mesh.last_result
+            if (pm is not prev) != ("scores" in w):
+                raise AssertionError(f"14b round {r} (warm={warm}): propagated "
+                                     f"{pm is not prev}, 13c {'scores' in w}")
+            if pm is not prev:
+                rec.update(steps=pm.n_iter, done=pm.converged,
+                           steps_equal=(pm.n_iter, pm.converged) == (w["steps"], w["done"]),
+                           scores_equal=torch.equal(r_mesh._current_scores.to(
+                               w["scores"].device), w["scores"]))
+            rounds.append(rec)
+            ret.update(got)
+            rows = meta.frame_starts[np.searchsorted(meta.frame_dbidx, got)]
+            r_mesh.update(rows, (rng.random(len(rows)) < 0.3).astype(np.float64))
+    prop = [x for x in rounds if "steps" in x]
+    out = {"rounds": rounds, "propagating_round_ms": [x["round_ms"] for x in prop],
+           "propagating_round_p50_ms": float(np.median([x["round_ms"] for x in prop]))}
+    if clock is not None:
+        out["collectives_share"] = (sum(x["collectives_ms"] for x in prop)
+                                    / sum(x["round_ms"] for x in prop))
+    return out
+
+
+def p14_serving_child(rank, port, backend, devices, payload, q):
+    """Phase 14a-b in one process of the mesh: 13a's queries over the bf16
+    and the int8 index (each process holding its shards' slices: views of
+    the parent's matrix on one card), 13b's batch, 13c's rounds, then 13a's
+    tie; each kernel's launches in this process. The queries and the rounds
+    run once for their times and once more clocked (`p14_clocked`)."""
+    mesh = p14_join(rank, port, backend, devices)
+    from seesaw_tpu_torch.indices.multiscale import MultiscaleIndex
+    from seesaw_tpu_torch.ops import fused_scoring as fs
+    from seesaw_tpu_torch.ops import spmv
+    from seesaw_tpu_torch.utils import rounds as R
+
+    meta = R.uniform_meta(N_VECTORS // TILES)  # device_index's layout
+    rec = {"rank": rank, "shards": list(mesh.local_shards),
+           "devices": [str(d) for d in mesh.devices]}
+    fs.fused_frame_max.launches = spmv.knn_spmv.launches = 0
+    indexes = {}
+    for name in ("bfloat16", "int8"):
+        indexes[name] = MultiscaleIndex.from_device_arrays(embedding=None, meta=meta, mesh=mesh,
+                                                           **payload[name])
+        rec[f"queries_{name}"] = p14_queries(indexes[name], meta, mesh)
+        rec[f"queries_{name}_clocked"] = p14_clocked(
+            lambda clock: p14_queries(indexes[name], meta, mesh, clock))
+    del indexes["bfloat16"]
+    rec["batch"] = p14_batch(indexes["int8"], mesh, payload["batch"])
+    args = (indexes["int8"], mesh, meta, payload["graph"], payload["knn_prop2"])
+    rec["knn_prop2"] = p14_knnprop(*args)
+    rec["knn_prop2_clocked"] = p14_clocked(lambda clock: p14_knnprop(*args, clock))
+    rec["tie"] = p14_tie(indexes["int8"], mesh, payload["tie"])
+    rec["launches"] = {"fused_frame_max": fs.fused_frame_max.launches,
+                       "knn_spmv": spmv.knn_spmv.launches}
+    del indexes
+    p14_leave(q, rank, rec, payload)
+
+
+def p14_knn_child(rank, port, backend, devices, payload, q):
+    """Phase 14c in one process of the mesh: 13d's ring kNN build over
+    13d's rows, against 13d's ids and distances; seconds, and in a second,
+    clocked build the collectives' (gathers and ring steps) seconds."""
+    mesh = p14_join(rank, port, backend, devices)
+    from seesaw_tpu_torch.parallel import mesh as M
+    from seesaw_tpu_torch.parallel import sharded_graph as tsg
+
+    X = payload["X"]
+
+    def build():
+        sync_mesh(mesh)
+        t0 = time.perf_counter()
+        ids, d = tsg.sharded_exact_knn(X, MESH_KNN_K, mesh)
+        sync_mesh(mesh)
+        return {"seconds": time.perf_counter() - t0,
+                "ids_equal": bool(np.array_equal(ids, payload["ids"].numpy())),
+                "max_dist_diff": float(np.abs(d - payload["dist"].numpy()).max())}
+
+    rec = {"rank": rank, "rows": int(X.shape[0]), "k": MESH_KNN_K, **build()}
+    clocked = p14_clocked(lambda clock: {**build(), "collectives_s": clock.ms / 1e3},
+                          [(M, "_gathered"), (tsg, "rotate")])
+    rec["clocked"] = clocked
+    rec["collectives_s"] = clocked["collectives_s"]
+    del X
+    p14_leave(q, rank, rec, payload)
+
+
+def p14_check_serving(recs, ref, backend):
+    """Every process's 14a-b results against 13a-c's: bit-equal."""
+    for rec in recs:
+        r = rec["rank"]
+        if rec["imported"]:
+            raise AssertionError(f"14 rank {r} imported {rec['imported']}")
+        for name in ("bfloat16", "int8"):
+            for key in (f"queries_{name}", f"queries_{name}_clocked"):
+                if rec[key]["results"] != ref[f"queries_{name}"]:
+                    raise AssertionError(f"14a {key} over {backend}, rank {r}: the queries "
+                                         f"differ from 13a's")
+        if tuple(rec["tie"]) != tuple(ref["tie_results"]):
+            raise AssertionError(f"14a tie over {backend}, rank {r}: {rec['tie']} != 13a's "
+                                 f"{ref['tie_results']}")
+        if not (rec["batch"]["ids_equal"] and rec["batch"]["scores_equal"]):
+            raise AssertionError(f"14a batch over {backend}, rank {r}: differs from 13b's")
+        for key in ("knn_prop2", "knn_prop2_clocked"):
+            for i, x in enumerate(rec[key]["rounds"]):
+                if not (x["dbidxs_equal"] and x.get("steps_equal", True)
+                        and x.get("scores_equal", True)):
+                    raise AssertionError(f"14b {key} round {i} over {backend}, rank {r}: {x} "
+                                         f"differs from 13c's")
+        k1 = P14_LOCAL * (2 * MESH_QUERIES + 1)  # one a local shard a solo query
+        if rec["launches"]["fused_frame_max"] != k1:
+            raise AssertionError(f"14a rank {r}: {rec['launches']['fused_frame_max']} K1 "
+                                 f"launches, not {k1}")
+    spmv_total = sum(rec["launches"]["knn_spmv"] for rec in recs)
+    if spmv_total != ref["knn_prop2_launches"]:
+        raise AssertionError(f"14b: {spmv_total} knn_spmv launches, 13c's mesh "
+                             f"{ref['knn_prop2_launches']}")
+
+
+def process_mesh_serving(idx, weights, ref, card) -> dict:
+    """Phase 14a-b, right after 13a-c: 13a's queries over the bf16 and the
+    int8 index with 13a's tie, 13b's batch and 13c's rounds, over a mesh of
+    P14_PROCESSES processes x P14_LOCAL shards; each held bit-equal to
+    13a-c. Returns each run's figures and each process's launches."""
+    import torch
+
+    T = idx._tile_bound
+    c, t = ref["tie"]
+
+    def arrays(ix):
+        return dict(V=ix._V, valid=ix._valid, boxes=ix._boxes, zoom=ix._zoom,
+                    row_scale=ix._row_scale, frame_scale=ix._frame_scale)
+
+    payload = {"bfloat16": arrays(ref["bf16"]), "int8": arrays(idx),
+               "tie": {"c": c, "t": t, "rows": idx._V[c * T:(c + 1) * T].clone(),
+                       "scale": idx._row_scale[c * T:(c + 1) * T].clone()},
+               "batch": ref["batch"],
+               "graph": {"nbr": weights.nbr, "w": weights.w, "degree": weights.degree},
+               "knn_prop2": ref["knn_prop2"]}
+    torch.cuda.synchronize()
+    out = {}
+    for backend, devices in p14_runs():
+        t0 = time.perf_counter()
+        recs = p14_spawn(p14_serving_child, backend, devices, payload)
+        p14_check_serving(recs, ref, backend)
+        run = {"processes": P14_PROCESSES, "shards_a_process": P14_LOCAL,
+               "devices": [x["devices"] for x in recs], "seconds": time.perf_counter() - t0}
+        for name in ("bfloat16", "int8"):
+            for key in (f"queries_{name}", f"queries_{name}_clocked"):
+                run[key] = [{f: v for f, v in x[key].items() if f != "results"} for x in recs]
+        run["batch"] = [x["batch"] for x in recs]
+        run["knn_prop2"] = [x["knn_prop2"] for x in recs]
+        run["knn_prop2_clocked"] = [x["knn_prop2_clocked"] for x in recs]
+        run["launches"] = [x["launches"] for x in recs]
+        log(f"[{card}] 14a-b over {backend}, {P14_PROCESSES} processes x {P14_LOCAL} shards: "
+            f"bit-equal to 13a-c; {json.dumps(run)}")
+        out[backend] = run
+    if "nccl" not in out:
+        log(f"phase 14 over NCCL not run: {torch.cuda.device_count()} card(s), and NCCL refuses "
+            f"two ranks on one GPU")
+    return out
+
+
+def p14_summary(card, m13, o13, s14, o14) -> dict:
+    """Phase 14's figures beside phase 13's: the same work over 2 processes
+    x 2 shards and over 4 shards in one process, on the same card. The
+    times come from the passes without the clock; the collectives' share,
+    and the clocked pass's own time, from the clocked pass."""
+    prop13 = m13["knn_prop2"]["cold"]["propagating_round_ms"] + \
+        m13["knn_prop2"]["warm"]["propagating_round_ms"]
+    out = {"card": card}
+    for name, key in (("bfloat16", "queries_bfloat16"), ("int8", "queries_int8")):
+        out[f"query_p50_ms_{name}"] = {
+            "in_process": m13[key]["sharded_p50_ms"],
+            "processes": [r["p50_ms"] for r in s14[key]],
+            "clocked_pass": [r["p50_ms"] for r in s14[f"{key}_clocked"]],
+            "collectives_share": [r["collectives_share"] for r in s14[f"{key}_clocked"]]}
+    out["batch_dispatch_ms"] = {"in_process": m13["batch"]["dispatch_ms"],
+                                "processes": [r["dispatch_p50_ms"] for r in s14["batch"]]}
+    out["propagating_round_p50_ms"] = {
+        "in_process": float(np.median(prop13)),
+        "processes": [r["propagating_round_p50_ms"] for r in s14["knn_prop2"]],
+        "clocked_pass": [r["propagating_round_p50_ms"] for r in s14["knn_prop2_clocked"]],
+        "collectives_share": [r["collectives_share"] for r in s14["knn_prop2_clocked"]]}
+    out["ring_knn_s"] = {"in_process": o13["knn"]["sharded_s"],
+                         "processes": [r["seconds"] for r in o14["knn"]],
+                         "clocked_pass": [r["clocked"]["seconds"] for r in o14["knn"]],
+                         "collectives_s": [r["collectives_s"] for r in o14["knn"]]}
+    out["dryrun_processes_s"] = o14["dryrun"]["seconds"]
+    out["phase_14_s"] = s14["seconds"] + o14["seconds"]
+    return out
+
+
+def process_mesh_offline(knn_ref, loss_13f, card) -> dict:
+    """Phase 14c-d, after 13d-g: 13d's ring kNN build over the process mesh
+    (ids equal to 13d's), then `python -m seesaw_tpu_torch.parallel.dryrun
+    --processes 2` (parts (a)-(e) as SPMD programs; the fine-tune step's
+    loss and parameters within 2e-4 of 13f's)."""
+    import torch
+
+    payload = {"X": knn_ref["X"], "ids": torch.from_numpy(knn_ref["ids"]),
+               "dist": torch.from_numpy(knn_ref["dist"])}
+    out = {}
+    for backend, devices in p14_runs():
+        t0 = time.perf_counter()
+        recs = p14_spawn(p14_knn_child, backend, devices, payload)
+        for rec in recs:
+            if rec["imported"] or any(not x["ids_equal"] or x["max_dist_diff"] > KNN_TOL
+                                      for x in (rec, rec["clocked"])):
+                raise AssertionError(f"14c over {backend}: {rec}")
+        log(f"[{card}] 14c ring kNN over {backend}, {P14_PROCESSES} processes x {P14_LOCAL} "
+            f"shards: ids equal to 13d's; {json.dumps(recs)}")
+        dry = p14_dryrun(backend, loss_13f, card)
+        out[backend] = {"knn": recs, "dryrun": dry, "seconds": time.perf_counter() - t0}
+    return out
+
+
+def p14_dryrun(backend, loss_13f, card) -> dict:
+    """14d: the dry run's own launcher, 2 processes x 2 shards on the
+    card(s); part (b)'s loss and stepped parameters against 13f's."""
+    import subprocess
+
+    params = P14_DIR / f"dryrun_14d_{backend}.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "seesaw_tpu_torch.parallel.dryrun", "--processes",
+         str(P14_PROCESSES), "--devices-per-process", str(P14_LOCAL), "--device", "cuda",
+         "--backend", backend, "--params-out", str(params)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"14d over {backend} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    ranks = json.loads(proc.stdout.strip().splitlines()[-1])["dryrun"]["ranks"]
+    with np.load(P14_DIR / "dryrun_13f.npz") as a, np.load(params) as b:
+        if a.files != b.files:
+            raise AssertionError("14d: the stepped parameters' names differ from 13f's")
+        err = max(float(np.abs(a[k] - b[k]).max()) for k in a.files)
+    losses = [r["b_finetune"]["loss"] for r in ranks]
+    rec = {"seconds": secs, "param_max_abs_diff_vs_13f": err, "losses": losses,
+           "loss_13f": loss_13f,
+           "launches": [{k: sum(r[p]["launches"][k] for p in r if isinstance(r[p], dict)
+                                and "launches" in r[p]) for k in r["a_retrieval"]["launches"]}
+                        for r in ranks]}
+    if err > 2e-4 or len(set(losses)) != 1 or abs(losses[0] - loss_13f) > 2e-4:
+        raise AssertionError(f"14d over {backend}: {rec}")
+    log(f"[{card}] 14d dryrun --processes {P14_PROCESSES} over {backend}: {json.dumps(rec)}")
+    return rec
 
 
 def traced(run) -> dict:
@@ -3496,8 +4051,13 @@ def main() -> int:
     knn_launches, weights = knnprop_path(idx, dev, gen, card)
     torch.cuda.synchronize()
     # phase 13a-c: the mesh over phase 6's index and graph
-    mesh_serving, mesh_serving_launches = mesh_serving_path(idx, weights, dev, gen, card)
-    del weights
+    mesh_serving, mesh_serving_launches, mesh_ref = mesh_serving_path(idx, weights, dev, gen,
+                                                                      card)
+    # phase 14a-b: the same over a mesh that spans processes
+    log("phase 14: 2 processes x 2 shards, joined by gloo: NCCL refuses two ranks on one GPU, "
+        "so on one card the processes share it and the collectives cross host memory")
+    pmesh_serving = process_mesh_serving(idx, weights, mesh_ref, card)
+    del weights, mesh_ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     # phase 11: concurrent serving, over phase 6's index first
@@ -3542,7 +4102,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     # phase 13d-g: the mesh's offline build, extraction, dry run and multihost init
-    mesh_offline, mesh_offline_launches = mesh_offline_path(dev, card, clip_params, frames)
+    mesh_offline, mesh_offline_launches, knn_ref = mesh_offline_path(dev, card, clip_params,
+                                                                     frames)
+    # phase 14c-d: the ring kNN build and the dry run over processes
+    pmesh_offline = process_mesh_offline(knn_ref, mesh_offline["dryrun"]["b_finetune"]["loss"],
+                                         card)
+    del knn_ref
     shutil.rmtree(frames[0].parent, ignore_errors=True)
     torch.cuda.synchronize()
     bad = [m for m in sys.modules
@@ -3573,6 +4138,15 @@ def main() -> int:
     log(json.dumps({"evaluation": evaluation}))
     # phase 13's figures; the 4 shards share one card where the mesh line says so
     mesh_dry = mesh_offline_launches["dryrun"]
+    # phase 14's: every process's launches, summed for the kernel record
+    p14_serve = pmesh_serving["gloo"]["launches"]
+    p14_dry = pmesh_offline["gloo"]["dryrun"]["launches"]
+    p14 = {k: sum(x[k] for x in p14_serve) for k in ("fused_frame_max", "knn_spmv")}
+    p14_d = {k: sum(x[k] for x in p14_dry) for k in p14_dry[0]}
+    log(json.dumps({"process_mesh": {"card": card, "serving": pmesh_serving,
+                                     "offline": pmesh_offline}}))
+    log(json.dumps({"process_mesh_vs_in_process": p14_summary(
+        card, mesh_serving, mesh_offline, pmesh_serving["gloo"], pmesh_offline["gloo"])}))
     log(json.dumps({"multi_gpu": {
         "card": card, "serving": mesh_serving, "offline": mesh_offline,
         "launches": {"fused_frame_max": {"mesh_queries": mesh_serving_launches["fused_frame_max"],
@@ -3602,7 +4176,11 @@ def main() -> int:
                                 for k, v in eval_launches["fused_frame_max"].items()},
                              # phase 13a's sharded queries (one a shard), 13f's dry run
                              "mesh_queries": mesh_serving_launches["fused_frame_max"],
-                             "mesh_dryrun": mesh_dry["fused_frame_max"]},
+                             "mesh_dryrun": mesh_dry["fused_frame_max"],
+                             # phase 14a's queries over 2 processes (one a local
+                             # shard), 14d's dry run, both processes summed
+                             "process_mesh_queries": p14["fused_frame_max"],
+                             "process_mesh_dryrun": p14_d["fused_frame_max"]},
         "max_abs_err": worst,
         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
@@ -3627,7 +4205,10 @@ def main() -> int:
                              # phase 13c's mesh rounds (knn_spmv, one a shard a
                              # step) and 13f's dry run
                              "mesh_knn_prop2": mesh_serving_launches["knn_spmv"],
-                             "mesh_dryrun": mesh_dry["knn_spmv"]},
+                             "mesh_dryrun": mesh_dry["knn_spmv"],
+                             # phase 14b's rounds over 2 processes, 14d's dry run
+                             "process_mesh_knn_prop2": p14["knn_spmv"],
+                             "process_mesh_dryrun": p14_d["knn_spmv"]},
         "max_abs_err": knn["max_abs_err"],
         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
         "bound_ms": knn["bound_ms"], "bound_by": knn["bound_by"],
@@ -3663,7 +4244,9 @@ def main() -> int:
                              # 13e's data-parallel extraction (12 a shard slice);
                              # 13f's dry run (its text and vision towers)
                              "mesh_ingest": mesh_offline_launches["pair_attention_ingest"],
-                             "mesh_dryrun": mesh_dry["pair_attention"]},
+                             "mesh_dryrun": mesh_dry["pair_attention"],
+                             # 14d's dry run over 2 processes
+                             "process_mesh_dryrun": p14_d["pair_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in f32_fwd),
         # at the main path's shape (the text query: B=1, L=77, W=512, causal)
         **{k: text_query[k] for k in timing},
@@ -3694,7 +4277,9 @@ def main() -> int:
         "launches": ft_bwd_launches["float32"],
         # 13f's data-parallel fine-tune step (the text tower's 2 layers a shard)
         "launches_by_path": {"finetune": ft_bwd_launches["float32"],
-                             "mesh_dryrun": mesh_dry["pair_attention_bwd"]},
+                             "mesh_dryrun": mesh_dry["pair_attention_bwd"],
+                             # 14d's data-parallel step over 2 processes
+                             "process_mesh_dryrun": p14_d["pair_attention_bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in f32_bwd),
         # at the main path's shape (fine-tuning's ViT-B/32 vision layer, f32)
         **{k: vit_bwd[k] for k in timing},

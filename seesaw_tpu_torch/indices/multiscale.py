@@ -19,7 +19,11 @@ per-shard programs with the global shortlist cutoff and merge on the mesh's
 primary device, where the exclusion masks' lists, the deferred fits and the
 host-facing state live. A staged KnnProp2 round does not fuse over a mesh:
 its propagation runs first, then the sharded ranking. A one-device mesh is
-the single-device index.
+the single-device index. Over a mesh that spans processes
+(`make_mesh(devices=..., group=...)`) each process builds, or slices, only its
+own shards (`from_path(mesh=)` in every process reads the same files), and
+queries and rankings return the same result in every process, provided
+every process makes the same calls (`parallel/mesh.py`).
 
 `save` writes the JAX package's on-disk format, with the JAX class in
 `info.json`'s constructor string, so an index saved here loads in both

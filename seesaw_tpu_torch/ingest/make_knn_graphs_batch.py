@@ -16,7 +16,9 @@ flow: one graph per qgt column) are created from the category's positive
 frames. With `--factored_k_intra N` the diversified graph
 (`knn_graph.factor_neighbors`) is saved beside each as `<name>_factored`.
 `--sharded` builds over a mesh of every visible card (`parallel.mesh.
-make_mesh`, the ring build of `parallel.sharded_graph`).
+make_mesh`, the ring build of `parallel.sharded_graph`). `build_one` also
+takes a mesh that spans processes: every process builds its shards' part,
+gets the whole graph, and the process of rank 0 writes it.
 """
 import argparse
 from pathlib import Path
@@ -34,6 +36,8 @@ def build_one(ds, index_name: str, *, knng_name: str, n_neighbors: int, device,
     # dataset/subset directory so per-category graphs don't collide
     out = Path(ds.path) / "indices" / index_name / "knn_graph" / knng_name
     g = KNNGraph.build(idx.vectors, n_neighbors=n_neighbors, device=device, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return  # a process mesh's graph is replicated: rank 0 writes it
     g.save(out)
     print(f"{ds.dataset_name}/{index_name}: {g.nvecs} vectors k={g.k} -> {out}")
     if k_intra:

@@ -14,7 +14,10 @@ JAX package's: the batch is rounded up to a multiple of the shard count S
 and split into S contiguous slices, the vision tower is replicated once per
 distinct device of the mesh, and each slice is encoded on its shard's
 device; the vectors come back in the single-device order. Both tilings take
-a mesh (the JAX package's device tiling does not).
+a mesh (the JAX package's device tiling does not). Over a mesh that spans
+processes every process decodes and tiles every image, encodes its own
+shards' slices (the last ones zero-padded to the slice size), and one
+gather a batch gives every process the whole batch's vectors.
 
 Kept from the JAX package: a dead decode or upload thread forwards its
 exception and the run raises (never hangs); undecodable images are skipped
@@ -46,6 +49,7 @@ from ..indices.meta import VectorMeta
 from ..indices.multiscale import MultiscaleIndex
 from ..models.preprocess import normalize_pixels
 from ..models.registry import load_embedding
+from ..parallel.mesh import gather_to
 from ..utils.transactional import transactional_folder
 from .device_tiling import build_tiler, make_plan
 from .tiling import generate_multiscale_tiling
@@ -65,7 +69,7 @@ def replicate_embedding(embedding, mesh) -> list:
     tower per distinct device (`replica`), the embedding itself where it
     already is; a host model (no `replica`) serves every shard."""
     if not hasattr(embedding, "replica"):
-        return [embedding] * mesh.size
+        return [embedding] * len(mesh.devices)
     on = {d: embedding.replica(d) for d in mesh.distinct}
     return [on[d] for d in mesh.devices]
 
@@ -74,20 +78,24 @@ class _BatchEncoder:
     """Encodes batches of CLIP-normalized tiles and collects the vectors on
     the host one batch behind: batch i's copies are waited for only after
     batch i+1 is enqueued. With a mesh, each batch is split into contiguous
-    slices, slice s encoded by shard s's replica on its device."""
+    slices, slice s encoded by shard s's replica on its device; over a
+    process mesh, this process's slices, gathered from every process."""
 
     def __init__(self, embedding, mesh=None):
         self.embedding = embedding
-        self.replicas = (replicate_embedding(embedding, mesh)
-                         if mesh is not None and mesh.size > 1 else None)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.replicas = None if self.mesh is None else replicate_embedding(embedding, mesh)
         self.vectors: list[np.ndarray] = []
         self._pending = []  # [(host tensor or array, CUDA event or None)] of a batch
 
     def submit(self, pixels: torch.Tensor):
+        if self.mesh is not None and self.mesh.group is not None:
+            self._submit_spmd(pixels)
+            return
         if self.replicas is None:
             parts = [(self.embedding, pixels)]
         else:
-            per = -(-pixels.shape[0] // len(self.replicas))
+            per = -(-pixels.shape[0] // self.mesh.size)
             parts = [(emb, pixels[s * per:(s + 1) * per].to(_device_of(emb)))
                      for s, emb in enumerate(self.replicas) if s * per < pixels.shape[0]]
         pending = []
@@ -103,6 +111,22 @@ class _BatchEncoder:
             pending.append((vecs, event))
         self._harvest()
         self._pending = pending
+
+    def _submit_spmd(self, pixels: torch.Tensor):
+        """Over a process mesh: this process's slices of ceil(B / S) tiles
+        (the batch's tail zero-padded), then one gather of every shard's
+        vectors, in shard order, onto the host."""
+        m, B = self.mesh, pixels.shape[0]
+        per = -(-B // m.size)
+        parts = []
+        for s, emb in zip(m.local_shards, self.replicas):
+            px = pixels[s * per:(s + 1) * per]
+            if px.shape[0] < per:
+                px = torch.cat([px, px.new_zeros((per - px.shape[0], *px.shape[1:]))])
+            vecs = torch.as_tensor(emb.encode_image_batch(px.to(_device_of(emb))))
+            parts.append(vecs.to(torch.float32))
+        self._harvest()
+        self.vectors.append(gather_to(m, parts, device="cpu")[:B].numpy())
 
     def _harvest(self):
         for vecs, event in self._pending:

@@ -76,7 +76,8 @@ class KNNGraph:
         """Exact kNN graph of `vectors` (numpy or a tensor) built on `device`
         (`ops.knn.exact_knn`), or with a `mesh` of several devices the
         sharded ring build over them (a one-device mesh builds on its
-        device)."""
+        device); over a mesh that spans processes, every process gets the
+        whole graph."""
         if mesh is not None and mesh.size > 1:
             from .parallel.sharded_graph import sharded_exact_knn
 

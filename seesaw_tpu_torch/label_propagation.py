@@ -9,7 +9,9 @@ max(1, prior_max)].
 With a `mesh` of several devices the graph is row-sharded over them once
 (`parallel.sharded_graph.shard_graph`, cached with the weights) and each
 run is `parallel.sharded_graph.propagate_on_mesh`; the scores come back on
-the mesh's primary device, which is this propagation's `device`.
+the mesh's primary device, which is this propagation's `device`. Over a
+mesh that spans processes each process holds its own row blocks, and
+every process gets the same scores, steps and converged flag.
 """
 from __future__ import annotations
 

@@ -1,10 +1,24 @@
 """Drive every mesh path once, each against its single-device result.
 
     python -m seesaw_tpu_torch.parallel.dryrun --n-devices 4 --device cpu|cuda
+    python -m seesaw_tpu_torch.parallel.dryrun --processes 2 --devices-per-process 2 \
+        --device cpu|cuda [--backend gloo|nccl]
+    python -m seesaw_tpu_torch.parallel.dryrun --coordinator HOST:PORT --rank R \
+        --world-size N --devices-per-process 2 --device cpu|cuda [--backend gloo|nccl]
 
 The twin of the JAX package's multi-chip dry run
 (`__graft_entry__.dryrun_multichip`), over a mesh of `--n-devices` shards
-on `--device` repeated (one card, or the CPU, holds every shard):
+on `--device` repeated (one card, or the CPU, holds every shard). With
+`--processes N` it starts N processes itself, joined by `torch.distributed`
+(`multihost.init_multihost`), each holding `--devices-per-process` shards
+of one mesh that spans them (S = N x M); `--coordinator/--rank/
+--world-size` run one such process started by the user. Over a process
+mesh parts (a)-(e) run as SPMD programs, every process holding each result
+against its own one-device run, and (f) over the process's own shards in
+one process: the coalescer keeps the in-process mesh. `--device cuda`
+puts process r on card r modulo the visible cards; the backend defaults to
+NCCL on cards and gloo on the CPU (processes that share a card need gloo:
+NCCL refuses two ranks on one GPU).
 
 a. sharded retrieval over ~2k ragged frames (a frame count the mesh does
    not divide, tile bound 16), and a batch of 4 queries equal to their solo
@@ -23,20 +37,30 @@ f. four threads' queries coalesced into one sharded batch over the mesh
    index, each equal to its single-device solo query.
 
 Prints one JSON line with each part's figures (and, on a card, each
-kernel's launches); raises if a check fails. Tolerances are stated where
-they are checked.
+kernel's launches; with `--processes`, every process's record); raises if
+a check fails. `--params-out PATH` writes part (b)'s stepped parameters
+(`.npz`; with `--processes`, rank 0's). Tolerances are stated where they
+are checked.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
+import socket
+import subprocess
+import sys
+import tempfile
 import threading
+import time
+from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .mesh import Mesh, make_mesh, psum
+from .multihost import init_multihost, shutdown_multihost
 
 # a text and vision tower whose attention the kernels take (64-wide heads,
 # an even head count)
@@ -114,9 +138,10 @@ def _text_loss(model, tokens, targets):
     return (1.0 - (txt * tgt).sum(dim=-1)).mean()
 
 
-def finetune_step(mesh: Mesh, rng) -> dict:
-    """(b): per-shard losses and gradients, averaged across the shards, one
-    Adam step; against one step on the whole batch on the primary device."""
+def finetune_step(mesh: Mesh, rng, params_out=None) -> dict:
+    """(b): per-shard losses and gradients, averaged across the shards (and
+    processes), one Adam step; against one step on the whole batch on the
+    primary device. `params_out`: write the stepped parameters there (npz)."""
     from ..models.clip import ClipConfig, init_params
 
     cfg = ClipConfig(**DRYRUN_CLIP)
@@ -129,9 +154,9 @@ def finetune_step(mesh: Mesh, rng) -> dict:
     targets = torch.from_numpy(rng.normal(size=(B, cfg.embed_dim)).astype(np.float32))
     per = B // S
 
-    replicas = [_tower(cfg, params, dev) for dev in mesh.devices]
+    replicas = [_tower(cfg, params, dev) for dev in mesh.devices]  # this process's shards
     losses, grads = [], []
-    for s, (model, dev) in enumerate(zip(replicas, mesh.devices)):
+    for s, model, dev in zip(mesh.local_shards, replicas, mesh.devices):
         loss = _text_loss(model, tokens[s * per:(s + 1) * per].to(dev),
                           targets[s * per:(s + 1) * per].to(dev))
         names, ps = zip(*[(n, p) for n, p in model.named_parameters()])
@@ -144,7 +169,9 @@ def finetune_step(mesh: Mesh, rng) -> dict:
         p.grad = psum(mesh, parts)[0] / S
     opt = torch.optim.Adam(master.parameters(), lr=1e-4)
     opt.step()
-    mesh_loss = float(torch.stack([x.to(mesh.primary) for x in losses]).mean())
+    mesh_loss = float(psum(mesh, losses)[0]) / S
+    if params_out is not None:
+        np.savez(params_out, **{n: p.detach().cpu().numpy() for n, p in master.named_parameters()})
 
     ref = _tower(cfg, params, mesh.primary)
     ref_loss = _text_loss(ref, tokens.to(mesh.primary), targets.to(mesh.primary))
@@ -275,11 +302,14 @@ def knnprop_round(mesh: Mesh, rng) -> dict:
 
 def coalesced(mesh: Mesh, rng) -> dict:
     """(f): four threads' queries coalesced over the mesh index, each equal
-    to its single-device solo query."""
+    to its single-device solo query. The coalescer keeps the in-process
+    mesh: over a process mesh, this process's shards in one process."""
     from ..indices.multiscale import MultiscaleIndex
     from ..runtime.bitmap import BitMap
     from ..web.coalesce import CoalescingIndex
 
+    if mesh.group is not None:
+        mesh = make_mesh(devices=mesh.devices)
     meta, V = _ragged_meta(rng, 40 * mesh.size + 3, 5, 32)
     idx_mesh = MultiscaleIndex(vectors=V, meta=meta, mesh=mesh)
     idx_one = MultiscaleIndex(device=mesh.primary, vectors=V, meta=meta)
@@ -322,14 +352,18 @@ def _launch_counters():
             "pair_attention_bwd": attention.pair_attention_bwd}
 
 
-def dryrun_multichip(n_devices: int, device) -> dict:
-    """Parts (a)-(f) over a mesh of `n_devices` shards on `device` repeated.
-    Returns each part's figures and each kernel's launches in the part."""
-    mesh = make_mesh(devices=[torch.device(device)] * n_devices)
+def dryrun_multichip(n_devices: int, device, *, group=None, params_out=None) -> dict:
+    """Parts (a)-(f) over a mesh of `n_devices` shards on `device` repeated;
+    with a `torch.distributed` group, these are this process's shards of a
+    mesh over every process of it. Returns each part's figures and each
+    kernel's launches in the part (in this process)."""
+    mesh = make_mesh(devices=[torch.device(device)] * n_devices, group=group)
     rng = np.random.default_rng(0)
     counters = _launch_counters()
-    out = {"n_devices": n_devices, "device": str(mesh.primary)}
-    for name, part in (("a_retrieval", retrieval), ("b_finetune", finetune_step),
+    out = {"n_devices": mesh.size, "device": str(mesh.primary), "processes": mesh.world,
+           "rank": mesh.rank}
+    for name, part in (("a_retrieval", retrieval),
+                       ("b_finetune", partial(finetune_step, params_out=params_out)),
                        ("c_graph", graph), ("d_ingest_encode", ingest_encode),
                        ("e_knn_prop2", knnprop_round), ("f_coalesced", coalesced)):
         before = {k: c.launches for k, c in counters.items()}
@@ -341,15 +375,114 @@ def dryrun_multichip(n_devices: int, device) -> dict:
     return out
 
 
+# a dry run process that has not finished by then has hung in a collective
+PROCESS_TIMEOUT_S = 900.0
+
+
+def free_port() -> int:
+    """A free TCP port on this machine, for a group's coordinator."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(commands: list, logs: Path, *, timeout_s: float, env=None) -> None:
+    """Run one process a command (the processes of one mesh), each writing
+    its output to `logs`/rank<r>.log, and wait for all of them. A process
+    that fails, or any left after `timeout_s` (hung in a collective), stops
+    them all and raises with the first failed rank's output."""
+    procs = []
+    try:
+        for r, cmd in enumerate(commands):
+            log = open(Path(logs) / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                                           cwd=Path(__file__).resolve().parents[2]), log))
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p, _ in procs):
+            if any(p.poll() not in (None, 0) for p, _ in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if failed:
+        r = failed[0]
+        text = (Path(logs) / f"rank{r}.log").read_text()
+        raise RuntimeError(f"process {r} of {len(commands)} failed (exit "
+                           f"{procs[r][0].returncode}):\n{text[-6000:]}")
+
+
+def dryrun_processes(n: int, devices_per_process: int, device: str, backend: str,
+                     params_out=None) -> list:
+    """Start `n` processes of this command joined at a free local port, each
+    holding `devices_per_process` shards; return each rank's record."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        commands = []
+        for r in range(n):
+            cmd = [sys.executable, "-m", "seesaw_tpu_torch.parallel.dryrun",
+                   "--coordinator", coordinator, "--rank", str(r), "--world-size", str(n),
+                   "--devices-per-process", str(devices_per_process), "--device", device,
+                   "--backend", backend, "--record-out", str(Path(tmp) / f"rank{r}.json")]
+            if params_out is not None and r == 0:
+                cmd += ["--params-out", str(params_out)]
+            commands.append(cmd)
+        run_processes(commands, Path(tmp), timeout_s=PROCESS_TIMEOUT_S)
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(n)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--n-devices", type=int, default=4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--processes", type=int, default=0,
+                    help="start this many processes of one mesh")
+    ap.add_argument("--devices-per-process", type=int, default=None,
+                    help="shards a process holds (default: --n-devices / --processes)")
+    ap.add_argument("--coordinator", help="HOST:PORT of rank 0, for a process the user starts")
+    ap.add_argument("--rank", type=int)
+    ap.add_argument("--world-size", type=int)
+    ap.add_argument("--backend", choices=("gloo", "nccl"),
+                    help="default: nccl with --device cuda, gloo with --device cpu")
+    ap.add_argument("--params-out", help="write part (b)'s stepped parameters (npz)")
+    ap.add_argument("--record-out", help=argparse.SUPPRESS)  # a started process's record
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu")
-    print(json.dumps({"dryrun": dryrun_multichip(args.n_devices, args.device)}))
+    backend = args.backend or ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    if args.processes:
+        per = args.devices_per_process or max(1, args.n_devices // args.processes)
+        recs = dryrun_processes(args.processes, per, args.device, backend, args.params_out)
+        print(json.dumps({"dryrun": {"processes": args.processes, "ranks": recs}}))
+        return 0
+    if args.coordinator is None:
+        print(json.dumps({"dryrun": dryrun_multichip(args.n_devices, args.device,
+                                                     params_out=args.params_out)}))
+        return 0
+    if args.rank is None or args.world_size is None:
+        ap.error("--coordinator needs --rank and --world-size")
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", args.rank % torch.cuda.device_count())
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    init_multihost(args.coordinator, args.world_size, args.rank, backend=backend)
+    try:
+        rec = dryrun_multichip(args.devices_per_process or 1, device, group=dist.group.WORLD,
+                               params_out=args.params_out)
+    finally:
+        shutdown_multihost()
+    bad = [m for m in sys.modules if m == "jax" or m == "seesaw_tpu" or m.startswith("seesaw_tpu.")]
+    if bad:
+        raise AssertionError(f"the dry run imported {bad}")
+    if args.record_out:
+        Path(args.record_out).write_text(json.dumps(rec))
+    print(json.dumps({"dryrun": rec}))
     return 0
 
 

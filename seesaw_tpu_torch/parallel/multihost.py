@@ -1,13 +1,16 @@
-"""Multi-process initialization and the ingest fan-out.
+"""Multi-process initialization, the global mesh and the ingest fan-out.
 
 Counterpart of `seesaw_tpu/parallel/multihost.py`. The JAX package joins
-hosts with `jax.distributed`, after which one global mesh spans them. Here
+hosts with `jax.distributed`, after which `jax.devices()` spans them and
+one global mesh runs every `shard_map` program as SPMD. Here
 `torch.distributed` joins the processes (NCCL between CUDA devices, gloo on
-the CPU), with the coordinator, the world size and the rank given
-explicitly: nothing on a machine announces a cluster. The port's mesh
-(`parallel.mesh`) lives in one process, so a process group gives the
-collectives a multi-process program needs, and the ingest fan-out, which
-needs none: each process ingests a disjoint contiguous range of the corpus
+the CPU or where processes share a card), with the coordinator, the world
+size and the rank given explicitly: nothing on a machine announces a
+cluster. The global mesh is then `parallel.mesh.make_mesh(devices=local,
+group=dist.group.WORLD)`, one mesh over every process's devices (the SPMD
+contract in `parallel.mesh`'s docstring), and `shutdown_multihost` leaves
+the group. The ingest fan-out needs no mesh:
+each process ingests a disjoint contiguous range of the corpus
 (`ingest_file_range`), and the per-process vector files concatenate into
 the single-process index.
 """
@@ -36,6 +39,11 @@ def init_multihost(
     dist.init_process_group(backend=backend, init_method=url, world_size=int(num_processes),
                             rank=int(process_id))
     return dist.get_world_size(), dist.get_rank()
+
+
+def shutdown_multihost() -> None:
+    """Leave the process group (`destroy_process_group`)."""
+    dist.destroy_process_group()
 
 
 def ingest_file_range(

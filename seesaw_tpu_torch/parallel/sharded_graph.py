@@ -25,6 +25,11 @@ Counterpart of `seesaw_tpu/parallel/sharded_graph.py`.
   `dispatch_iters` (`segment_lengths`): a round that converges in a few
   steps launches a few, at the price of a read for each doubling.
 
+Over a process mesh (`parallel.mesh`) each process runs its own shards'
+part of both programs: the ring's rotations, the propagation's gathers and
+its `pmax` cross processes, and every process ends with the same (N, k)
+arrays, or the same scores, steps and converged flag.
+
 The JAX package's `sharded_propagate_windowed` (its lane-shuffle layout on
 the mesh) has no counterpart: the port has no windowed layout, and its
 tests are held against `sharded_propagate`. A whole segment in one launch
@@ -79,27 +84,28 @@ def sharded_exact_knn(vectors, n_neighbors: int, mesh: Mesh,
     best = [(torch.empty(Ns, 0, device=r.device),
              torch.empty(Ns, 0, dtype=torch.int64, device=r.device)) for r in rows]
     for t in range(S):  # ring step t: shard s holds column block (s + t) % S
-        for s in range(S):
+        for j, s in enumerate(mesh.local_shards):
             c = (s + t) % S
             n_valid = min(N - c * Ns, Ns)  # real columns of block c
-            sims_best, ids_best = best[s]
+            sims_best, ids_best = best[j]
             outs_s, outs_i = [], []
             for r0 in range(0, Ns, block):
                 r1 = min(r0 + block, Ns)
                 bs, bi = sims_best[r0:r1], ids_best[r0:r1]
                 for c0 in range(0, n_valid, CHUNK_COLS):
                     c1 = min(c0 + CHUNK_COLS, n_valid)
-                    sim = rows[s][r0:r1] @ cols[s][c0:c1].T
+                    sim = rows[j][r0:r1] @ cols[j][c0:c1].T
                     if c == s:
                         sim.diagonal(offset=r0 - c0).fill_(float("-inf"))  # self-edges
                     cs, ci = _exact_select(sim, min(k, c1 - c0))
                     bs, bi = _merge(bs, bi, cs, ci + (c * Ns + c0), k)
                 outs_s.append(bs)
                 outs_i.append(bi)
-            best[s] = (torch.cat(outs_s), torch.cat(outs_i))
-        cols = rotate(mesh, cols)
-    sims = gather_to("cpu", [b for b, _ in best])[:N]
-    ids = gather_to("cpu", [i for _, i in best])[:N]
+            best[j] = (torch.cat(outs_s), torch.cat(outs_i))
+        if t < S - 1:
+            cols = rotate(mesh, cols)
+    sims = gather_to(mesh, [b for b, _ in best], device="cpu")[:N]
+    ids = gather_to(mesh, [i for _, i in best], device="cpu")[:N]
     dist = (1.0 - sims).clamp_min_(0.0)
     return ids.to(torch.int32).numpy(), dist.numpy()
 
@@ -108,7 +114,7 @@ def sharded_exact_knn(vectors, n_neighbors: int, mesh: Mesh,
 class ShardedGraph:
     """A padded fixed-degree graph split into S row blocks of `rows` rows
     (the last padded with -1 ids and zero weights), block s on shard s's
-    device; column ids stay global."""
+    device (the lists hold this process's blocks); column ids stay global."""
 
     mesh: Mesh
     n: int
@@ -166,6 +172,8 @@ def propagate_on_mesh(
     f_prev = [x.clone() for x in f]
     steps = [torch.zeros((), dtype=torch.int32, device=d) for d in mesh.devices]
     done = [torch.zeros((), dtype=torch.bool, device=d) for d in mesh.devices]
+    # the reduced delta makes every shard's (steps, done), and so every
+    # process's once-a-segment read, agree
     i, converged, reads = 0, False, 0
     for seg in segment_lengths(max_iter, dispatch_iters):
         for _ in range(seg):
@@ -174,7 +182,7 @@ def propagate_on_mesh(
                    for g, nb, ww, lp, den, il, lab in
                    zip(fg, graph.nbr, graph.w, lam_prior, denom, il_s, labels_s)]
             delta = pmax(mesh, [((n - x) ** 2).max() for n, x in zip(new, f)])
-            for s in range(mesh.size):
+            for s in range(len(f)):
                 run = ~done[s]
                 f_prev[s] = torch.where(run, f[s], f_prev[s])
                 f[s] = torch.where(run, new[s], f[s])
@@ -186,7 +194,7 @@ def propagate_on_mesh(
         if converged or i >= max_iter:
             break
     out = [torch.where(d, fp, x) for d, fp, x in zip(done, f_prev, f)]
-    scores = gather_to(mesh.primary, out)[: graph.n]
+    scores = gather_to(mesh, out)[: graph.n]
     return PropagationResult(scores=scores, n_iter=i, converged=converged, host_reads=reads)
 
 

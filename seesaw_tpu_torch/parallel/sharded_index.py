@@ -20,9 +20,13 @@ its own frames:
 3. the ranking tail on its shortlist (`rank_from_frame_max` after the
    scan, the full-score tail otherwise).
 
-The (S x k) candidates merge on shard 0's device (the mesh's primary) by a
-top-k over the shards' lists in shard order. Results are `QueryResult`s
-there, with global frame ordinals; the host-facing functions
+The (S x k) candidates merge on the mesh's primary device by a top-k over
+the shards' lists in shard order. Over a process mesh (`parallel.mesh`)
+each process builds and scans only its own shards' blocks
+(`mesh.local_shards`, global ids in `offset`); the cutoff's gathers and the
+merge's cross processes, so every process returns the same merged result.
+Results are `QueryResult`s on the primary device, with global frame
+ordinals; the host-facing functions
 (`sharded_query_topk*`, `sharded_rank_by_scores`) decode them as the JAX
 package's return them. Exclusion masks are lists of per-shard (Fs,) or
 (Q, Fs) bool tensors; a query merges the click's new global frame ordinals
@@ -46,16 +50,17 @@ from ..indices.meta import VectorMeta
 from ..ops import frame_scoring as fsc
 from ..ops.frame_scoring import NEG_INF, QueryResult, apply_new_exclusions, topk_first
 from ..ops.fused_scoring import fused_frame_max
-from .mesh import Mesh, all_gather, gather_to, replicate, split_rows
+from .mesh import Mesh, all_gather, gather_to, psum, replicate, split_rows
 
 
 @dataclass
 class ShardedFrameIndex:
     """Per-shard padded blocks, each on its shard's device, and host
-    metadata. Shard s owns global frames [s * Fs, (s + 1) * Fs)."""
+    metadata. Shard s owns global frames [s * Fs, (s + 1) * Fs); the lists
+    hold this process's shards, in `mesh.local_shards` order."""
 
     mesh: Mesh
-    V: list  # (Fs*T, D) f32 / bf16 / int8 per shard
+    V: list  # (Fs*T, D) f32 / bf16 / int8 per local shard
     valid: list  # (Fs, T) bool
     boxes: list  # (Fs*T, 4) f32
     zoom: list  # (Fs*T,) int
@@ -157,35 +162,37 @@ class ShardedFrameIndex:
         """f32 rows of the padded layout (an int64 tensor on the primary
         device), dequantized for int8, on the primary device. Every shard
         gathers the ids (clamped into its block) and keeps its own, so no
-        host read decides which shard holds a row."""
+        host read decides which shard holds a row. Over a process mesh the
+        processes' masked sums add by one all_reduce: a row held by another
+        process arrives from it, and the others contribute exact zeros."""
         R = self.n_frames_local * self.tile_bound
         shard = prows // R
         out = None
-        for s, dev in enumerate(self.mesh.devices):
+        for j, (s, dev) in enumerate(zip(self.mesh.local_shards, self.mesh.devices)):
             local = (prows - s * R).clamp(0, R - 1).to(dev)
-            X = self.V[s][local].to(torch.float32)
+            X = self.V[j][local].to(torch.float32)
             if self.row_scale is not None:
-                X = X * self.row_scale[s][local][:, None]
+                X = X * self.row_scale[j][local][:, None]
             X = torch.where((shard == s)[:, None], X.to(self.mesh.primary), 0.0)
             out = X if out is None else out + X
-        return out
+        return out if self.mesh.group is None else psum(self.mesh, [out])[0]
 
     def score_vectors(self, qvec: torch.Tensor) -> torch.Tensor:
         """(F*T,) raw padded-layout scores V.q on the primary device."""
         q = replicate(self.mesh, qvec.to(torch.float32))
         parts = [fsc.scoring_matvec(V, qs, rs) for V, qs, rs in
                  zip(self.V, q, self._row_scales())]
-        return gather_to(self.mesh.primary, parts)[: self.n_frames * self.tile_bound]
+        return gather_to(self.mesh, parts)[: self.n_frames * self.tile_bound]
 
     def score_frames(self, qvec: torch.Tensor) -> torch.Tensor:
         """(F,) max tile score per frame on the primary device."""
         q = replicate(self.mesh, qvec.to(torch.float32))
         parts = [fsc.score_frames_max(V, valid, qs, rs) for V, valid, qs, rs in
                  zip(self.V, self.valid, q, self._row_scales())]
-        return gather_to(self.mesh.primary, parts)[: self.n_frames]
+        return gather_to(self.mesh, parts)[: self.n_frames]
 
     def _row_scales(self) -> list:
-        return self.row_scale if self.row_scale is not None else [None] * self.n_shards
+        return self.row_scale if self.row_scale is not None else [None] * len(self.V)
 
     # -- the per-shard programs ----------------------------------------------
     def _apply_new(self, excluded: list, new_ids: torch.Tensor) -> list:
@@ -193,10 +200,11 @@ class ShardedFrameIndex:
         each shard's mask; ordinals of other shards land in the scratch slot."""
         Fs = self.n_frames_local
         out = []
-        for s, ids in enumerate(replicate(self.mesh, new_ids)):
+        for j, (s, ids) in enumerate(zip(self.mesh.local_shards,
+                                         replicate(self.mesh, new_ids))):
             local = ids - self.offset(s)
             local = torch.where((ids >= 0) & (local >= 0) & (local < Fs), local, -1)
-            out.append(apply_new_exclusions(excluded[s], local))
+            out.append(apply_new_exclusions(excluded[j], local))
         return out
 
     def _cutoff_keep(self, fmax: list, shortlist_size: int) -> list:
@@ -204,20 +212,22 @@ class ShardedFrameIndex:
         above the k_global-th (score, global id) pair under (score desc,
         id asc). Every shard contributes at most min(k_global, Fs) <=
         shortlist_local frames to the global top k_global, so the gathered
-        local top lists hold the cutoff pair. Works over a leading Q axis."""
+        local top lists hold the cutoff pair, gathered in shard order (across
+        processes too). Works over a leading Q axis."""
         S, Fs = self.n_shards, self.n_frames_local
         sl = min(shortlist_size, Fs)
         k_global = min(shortlist_size, S * sl)
         tops = [topk_first(f, sl) for f in fmax]
+        shards = self.mesh.local_shards
         all_s = all_gather(self.mesh, [v for v, _ in tops], dim=-1)
-        all_g = all_gather(self.mesh, [i + self.offset(s) for s, (_, i) in enumerate(tops)],
+        all_g = all_gather(self.mesh, [i + self.offset(s) for s, (_, i) in zip(shards, tops)],
                            dim=-1)
         cut = {}  # one cutoff per distinct device
         keep = []
-        for s, f in enumerate(fmax):
-            dev = self.mesh.devices[s]
+        for j, (s, f) in enumerate(zip(shards, fmax)):
+            dev = self.mesh.devices[j]
             if dev not in cut:
-                cut[dev] = _kth_pair(all_s[s], all_g[s], k_global)
+                cut[dev] = _kth_pair(all_s[j], all_g[j], k_global)
             cut_s, cut_id = cut[dev]
             gid = torch.arange(Fs, device=f.device) + self.offset(s)
             keep.append((f > cut_s[..., None])
@@ -225,14 +235,15 @@ class ShardedFrameIndex:
         return keep
 
     def _merge(self, results: list, topk: int) -> QueryResult:
-        """The shards' (k,) or (Q, k) results -> the merged top-k on the
-        primary device, frame ids global."""
-        dev = self.mesh.primary
-        gfids = gather_to(dev, [torch.where(r.frame_ids >= 0, r.frame_ids + self.offset(s), -1)
-                                for s, r in enumerate(results)], dim=-1)
-        scores = gather_to(dev, [r.frame_scores for r in results], dim=-1)
-        boxes = gather_to(dev, [r.act_boxes for r in results], dim=-2)
-        act = gather_to(dev, [r.act_scores for r in results], dim=-1)
+        """The shards' (k,) or (Q, k) results, gathered in global shard
+        order -> the merged top-k on the primary device (of every process),
+        frame ids global."""
+        m = self.mesh
+        gfids = gather_to(m, [torch.where(r.frame_ids >= 0, r.frame_ids + self.offset(s), -1)
+                              for s, r in zip(m.local_shards, results)], dim=-1)
+        scores = gather_to(m, [r.frame_scores for r in results], dim=-1)
+        boxes = gather_to(m, [r.act_boxes for r in results], dim=-2)
+        act = gather_to(m, [r.act_scores for r in results], dim=-1)
         top, pos = topk_first(scores, min(topk, scores.shape[-1]))
         ok = top > NEG_INF
         return QueryResult(
@@ -278,7 +289,7 @@ def sharded_query_program(
     exc = idx._apply_new(excluded, new_ids)
     rs = idx._row_scales()
     fmax, scores = [], []
-    for s in range(idx.n_shards):
+    for s in range(len(idx.V)):  # this process's shards, by local position
         if q2 is None:
             fmax.append(fused_frame_max(idx.V[s], idx.valid[s], exc[s], q[s], rs[s]))
             continue
@@ -289,7 +300,7 @@ def sharded_query_program(
         scores.append(sc)
     keep = idx._cutoff_keep(fmax, shortlist_size)
     results = []
-    for s in range(idx.n_shards):
+    for s in range(len(idx.V)):
         if q2 is None:
             results.append(fsc.rank_from_frame_max(
                 idx.V[s], idx.valid[s], idx.boxes[s], idx.zoom[s], q[s],
@@ -323,7 +334,7 @@ def sharded_query_batch_program(
     keep = idx._cutoff_keep(fmax, shortlist_size)
     results = [fsc._rank_frames_batch(scores[s], idx.valid[s], idx.boxes[s], idx.zoom[s],
                                       exc[s] | ~keep[s], **tail)
-               for s in range(idx.n_shards)]
+               for s in range(len(idx.V))]
     return idx._merge(results, topk), exc
 
 
@@ -344,7 +355,7 @@ def sharded_rank_program(
     keep = idx._cutoff_keep(fmax, shortlist_size)
     results = [fsc._rank_frames(tile_scores[s], idx.valid[s], idx.boxes[s], idx.zoom[s],
                                 exc[s] | ~keep[s], **tail)
-               for s in range(idx.n_shards)]
+               for s in range(len(idx.V))]
     return idx._merge(results, topk), exc
 
 

@@ -113,14 +113,7 @@ def device_index(n_vectors: int, dim: int, dtype: str, *, device,
         row_scale = None
     else:
         raise ValueError(f"unknown dtype {dtype!r}")
-    meta = VectorMeta(
-        dbidx=np.repeat(np.arange(F, dtype=np.int32), TILES),
-        zoom_level=np.tile(_ZOOM, F),
-        boxes=np.tile(_BOXES, (F, 1)),
-        frame_dbidx=np.arange(F, dtype=np.int32),
-        frame_starts=np.arange(0, (F + 1) * TILES, TILES, dtype=np.int32),
-        frame_id=np.repeat(np.arange(F, dtype=np.int32), TILES),
-    )
+    meta = uniform_meta(F)
     if embedding is None:
         rng = np.random.default_rng(0)
         embedding = SimpleNamespace(
@@ -131,6 +124,20 @@ def device_index(n_vectors: int, dim: int, dtype: str, *, device,
         boxes=torch.from_numpy(_BOXES).to(dev).repeat(F, 1),
         zoom=torch.from_numpy(_ZOOM).to(dev).repeat(F),
         meta=meta, row_scale=row_scale, frame_scale=frame_scale, path=path,
+    )
+
+
+def uniform_meta(n_frames: int) -> VectorMeta:
+    """The host metadata of `device_index`'s layout: TILES tiles a frame
+    (zoom levels and boxes as `_ZOOM` / `_BOXES`), frame f's dbidx f."""
+    F = n_frames
+    return VectorMeta(
+        dbidx=np.repeat(np.arange(F, dtype=np.int32), TILES),
+        zoom_level=np.tile(_ZOOM, F),
+        boxes=np.tile(_BOXES, (F, 1)),
+        frame_dbidx=np.arange(F, dtype=np.int32),
+        frame_starts=np.arange(0, (F + 1) * TILES, TILES, dtype=np.int32),
+        frame_id=np.repeat(np.arange(F, dtype=np.int32), TILES),
     )
 
 

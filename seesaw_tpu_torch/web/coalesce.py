@@ -14,7 +14,10 @@ Leader election, no background thread: the first thread to open a
 executes it; followers wait on their event. Over a mesh-sharded index the
 batch is one `parallel.sharded_index.sharded_query_batch_program`: each
 shard's (Ns, D) @ (D, Q) product, the per-query cutoffs and the merge, and
-each session's per-shard masks are committed back.
+each session's per-shard masks are committed back. The mesh stays in one
+process: an index over a mesh that spans processes raises, as sessions
+arrive in one server process and a process mesh needs every process to
+make the same calls.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops import frame_scoring
+from ..parallel.mesh import require_in_process
 from ..parallel.sharded_index import sharded_query_batch_program
 
 
@@ -42,6 +46,7 @@ class _Req:
 
 class QueryCoalescer:
     def __init__(self, index, window_ms: float = 3.0, max_batch: int = 16):
+        require_in_process(getattr(index, "mesh", None), "the query coalescer")
         self.index = index
         self.window = window_ms / 1000.0
         self.max_batch = max_batch

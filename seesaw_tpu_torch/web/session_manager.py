@@ -4,7 +4,8 @@ Counterpart of `seesaw_tpu/web/session_manager.py` over the port's
 `make_session`: every session of a manager loads its index onto the
 manager's `device`. `WebSession` runs all of a user's operations serially
 under a per-session lock; `SessionManager` holds the sessions and reaps
-those idle longer than the cookie's lifetime.
+those idle longer than the cookie's lifetime. A server answers requests in
+one process, so an index over a mesh that spans processes raises.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from ..basic_types import SessionParams
 from ..dataset import GlobalDataManager
+from ..parallel.mesh import require_in_process
 from ..session import make_session
 from .common import (
     AppState,
@@ -57,6 +59,7 @@ class WebSession:
 
     def _reset_dataset(self, s: SessionParams):
         res = make_session(self.gdm, s, device=self.device)
+        require_in_process(getattr(res["session"].index, "mesh", None), "the session server")
         self.session = res["session"]
 
     def next_task(self, body: SessionReq) -> AppState:

@@ -54,3 +54,33 @@ def test_dryrun_command_line():
     assert proc.returncode == 0, proc.stderr
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     assert line["dryrun"]["n_devices"] == 4
+
+
+def test_dryrun_over_processes(tmp_path):
+    """`--processes 2 --devices-per-process 2`: two gloo processes of one
+    4-shard mesh run every part, each holding it against one device; both
+    return the same replicated results, equal to the in-process 4-shard
+    run's (the fine-tune step's parameters within 2e-4 and its loss within
+    1e-6 relative: its gradients add in another order)."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "seesaw_tpu_torch.parallel.dryrun", "--processes", "2",
+         "--devices-per-process", "2", "--device", "cpu", "--params-out",
+         str(tmp_path / "procs.npz")], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=env)
+    assert proc.returncode == 0, proc.stderr
+    ranks = json.loads(proc.stdout.strip().splitlines()[-1])["dryrun"]["ranks"]
+    assert [(r["rank"], r["processes"], r["n_devices"]) for r in ranks] == [(0, 2, 4), (1, 2, 4)]
+    one = dryrun_multichip(4, "cpu", params_out=tmp_path / "one.npz")
+    for r in ranks:
+        assert r["a_retrieval"] == ranks[0]["a_retrieval"]
+        assert r["e_knn_prop2"]["rounds"] == one["e_knn_prop2"]["rounds"]
+        assert r["c_graph"]["propagation_steps"] == one["c_graph"]["propagation_steps"]
+        assert r["b_finetune"]["loss"] == ranks[0]["b_finetune"]["loss"]
+        np.testing.assert_allclose(r["b_finetune"]["loss"], one["b_finetune"]["loss"], rtol=1e-6)
+        assert r["f_coalesced"]["stats"]["batched"] >= 2
+    with np.load(tmp_path / "procs.npz") as a, np.load(tmp_path / "one.npz") as b:
+        assert a.files == b.files
+        assert max(float(np.abs(a[k] - b[k]).max()) for k in a.files) <= 2e-4

@@ -249,12 +249,11 @@ def test_make_knn_graphs_batch_matches_jax_script(two_roots):
         "data/synth/subsets/cat_dog")).nvecs == 5 * len(sub.dbidxs)
 
 
-def test_sharded_knn_build_is_refused(synth_root):
-    """The name predates the mesh's port: `--sharded` builds over every
-    visible card, so without one it is refused with a usage error; with
-    one, the graph it saves equals the single-device build's (the mesh
-    build itself is held against JAX in `tests/test_torch_sharded_graph.
-    py`)."""
+def test_sharded_knn_build(synth_root):
+    """`--sharded` builds over every visible card, so without one it is
+    refused with a usage error; with one, the graph it saves equals the
+    single-device build's (the mesh build itself is held against JAX in
+    `tests/test_torch_sharded_graph.py`)."""
     import torch
 
     argv = ["--root", synth_root, "--dataset", "synth", "--sharded", "--knng_name", "mesh"]

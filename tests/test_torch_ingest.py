@@ -302,10 +302,10 @@ def test_a_dead_stage_raises(roots, model, monkeypatch):
         _extract(tpipe, tds_, load_embedding(model, "cpu"), "device")
 
 
-def test_mesh_is_not_ported(roots, model):
-    """The name predates the mesh's port: the data-parallel extraction over
-    a 3-shard CPU mesh (batches rounded up to 18, split into slices) gives
-    the single-device extraction's rows in the same order, vectors within
+def test_mesh_extraction_equals_one_device(roots, model):
+    """The data-parallel extraction over a 3-shard CPU mesh (batches
+    rounded up to 18, split into slices) gives the single-device
+    extraction's rows in the same order, vectors within
     rtol 1e-5 / atol 1e-6 (f32 sums of other batch shapes), in both
     tilings; `KNNGraph.build(mesh=)` gives the single-device graph
     (`tests/test_torch_sharded_graph.py` holds both against JAX)."""
@@ -420,3 +420,33 @@ def test_antialias_is_what_matches_jax(method, hw):
     assert err[True] <= 1e-4
     if hw[0] < 480 or method == "bicubic":
         assert err[False] > 50 * err[True]
+
+
+def test_create_dataset_command_matches_jax(tmp_path):
+    """`python -m seesaw_tpu_torch.ingest.create_dataset` and
+    `scripts/create_dataset.py` write the same dataset directory from one
+    image folder: the same `file_meta.parquet` table and an `images/` link
+    to the folder; both refuse an existing directory without `--force` and
+    replace it with it."""
+    import pandas as pd
+
+    _write_images(tmp_path / "raw", "jpg", seed=3)
+    (tmp_path / "raw" / "sub").mkdir()
+    PIL.Image.new("RGB", (8, 8)).save(tmp_path / "raw" / "sub" / "a.png")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    cmds = {"jax": [sys.executable, str(REPO / "scripts" / "create_dataset.py")],
+            "torch": [sys.executable, "-m", "seesaw_tpu_torch.ingest.create_dataset"]}
+    for side, cmd in cmds.items():
+        argv = cmd + ["--image_dir", str(tmp_path / "raw"),
+                      "--output_path", str(tmp_path / side)]
+        for extra, ok in (([], True), ([], False), (["--force"], True)):
+            out = subprocess.run(argv + extra, cwd=REPO, env=env, capture_output=True,
+                                 text=True, timeout=120)
+            assert (out.returncode == 0) == ok, (side, extra, out.stderr)
+    tables = [pd.read_parquet(tmp_path / side / "file_meta.parquet") for side in cmds]
+    pd.testing.assert_frame_equal(tables[0], tables[1])
+    assert len(tables[0]) == len(SIZES) + 1
+    for side in cmds:
+        assert os.path.realpath(tmp_path / side / "images") == str((tmp_path / "raw").resolve())
+    assert tds.SeesawDataset(str(tmp_path / "torch")).file_path(0) == \
+        jds.SeesawDataset(str(tmp_path / "jax")).file_path(0)
