@@ -58,6 +58,7 @@ from ..parallel.sharded_index import (
 )
 from ..query_interface import InteractiveQuery
 from ..runtime.bitmap import BitMap, FrozenBitMap
+from ..utils.profiling import annotate, host_sync
 from .interface import AccessMethod
 from .meta import VectorMeta, next_pow2
 
@@ -396,9 +397,9 @@ class MultiscaleIndex(AccessMethod):
         return vec / np.linalg.norm(vec)
 
     def _qtensor(self, vec) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(np.asarray(vec, np.float32).reshape(-1))
-        ).to(self.device)
+        q = torch.from_numpy(np.ascontiguousarray(np.asarray(vec, np.float32).reshape(-1)))
+        with host_sync("upload.query"):
+            return q.to(self.device)
 
     def score_device(self, vec: np.ndarray):
         """Per-vector scores, left on the device for a device-built index
@@ -417,15 +418,20 @@ class MultiscaleIndex(AccessMethod):
 
     def score(self, vec: np.ndarray) -> np.ndarray:
         s = self.score_device(vec)
-        return s.cpu().numpy() if isinstance(s, torch.Tensor) else np.asarray(s)
+        if not isinstance(s, torch.Tensor):
+            return np.asarray(s)
+        with host_sync("score"):
+            return s.cpu().numpy()
 
     def score_frames(self, vec: np.ndarray) -> np.ndarray:
         """Max tile score per frame (on a mesh, per shard, then gathered)."""
         if self._sharded is not None:
-            return self._sharded.score_frames(self._qtensor(vec)).cpu().numpy()
-        return frame_scoring.score_frames_max(
-            self._V, self._valid, self._qtensor(vec), self._row_scale
-        ).cpu().numpy()
+            s = self._sharded.score_frames(self._qtensor(vec))
+        else:
+            s = frame_scoring.score_frames_max(
+                self._V, self._valid, self._qtensor(vec), self._row_scale)
+        with host_sync("score_frames"):
+            return s.cpu().numpy()
 
     def __len__(self) -> int:
         return len(self.all_indices)
@@ -451,12 +457,14 @@ class MultiscaleIndex(AccessMethod):
         shard_mask`)."""
         if self._sharded is not None:
             return self._sharded.shard_mask(mask)
-        return torch.from_numpy(mask).to(self.device)
+        with host_sync("upload.mask"):
+            return torch.from_numpy(mask).to(self.device)
 
     def _new_ids_tensor(self, ords: np.ndarray) -> torch.Tensor:
         out = np.full(self._EXCL_DELTA, -1, dtype=np.int64)
         out[: ords.shape[0]] = ords
-        return torch.from_numpy(out).to(self.device)
+        with host_sync("upload.exclusion"):
+            return torch.from_numpy(out).to(self.device)
 
     def _dbidx_to_frame_ordinals(self, ids: np.ndarray) -> np.ndarray:
         fd = self.meta.frame_dbidx
@@ -465,9 +473,12 @@ class MultiscaleIndex(AccessMethod):
         return pos[(pos < fd.shape[0]) & (fd[safe] == ids)].astype(np.int64)
 
     def _device_exclusion(self, exclude: Optional[BitMap]):
-        """(device mask, padded new frame ordinals, commit token)."""
+        """(device mask, padded new frame ordinals, commit token). Its span
+        records the wait for the lock (`lock_wait_us`) and whether the
+        host mask was rebuilt (`rebuilt`)."""
         no_new = np.zeros(0, dtype=np.int64)
-        with self._excl_lock:
+        with annotate("index.exclusion", rebuilt=0) as sp, self._excl_lock:
+            sp.set_elapsed_us("lock_wait_us")
             if exclude is None or len(exclude) == 0:
                 if self._excl_base is None:
                     self._excl_base = self._mask_to_device(self._base_excluded_mask.copy())
@@ -489,6 +500,7 @@ class MultiscaleIndex(AccessMethod):
 
             # first sighting of this set, or it shrank or jumped: rebuild on
             # the host once, then incremental again
+            sp.set(rebuilt=1)
             mask = self._mask_to_device(self._frame_exclusion_mask(exclude))
             self._excl_entries[key] = _ExclEntry(exclude, exclude.copy(), mask)
             self._excl_entries.move_to_end(key)
@@ -523,37 +535,38 @@ class MultiscaleIndex(AccessMethod):
         rescore_method=None,  # unused, as in the JAX index
         **kwargs,
     ) -> dict:
-        if shortlist_size is None or shortlist_size < topk:
-            shortlist_size = max(topk * 5, shortlist_size or 0)
-        rank = dict(
-            shortlist_size=min(shortlist_size, self.n_frames),
-            topk=min(topk, self.n_frames),
-            aug_larger=aug_larger, aug_weight=aug_weight,
-            agg_method=agg_method, max_zoom=self._max_zoom,
-        )
-        if isinstance(vector, frame_scoring.DeferredVector):
-            assert vector2 is None
-            handler = {
-                frame_scoring.DeferredRocchio: self._query_rocchio,
-                frame_scoring.DeferredLogistic: self._query_logistic,
-                frame_scoring.DeferredMultiReg: self._query_multireg,
-            }[type(vector)]
-            return handler(vector, exclude=exclude, rank=rank)
-
-        mask, new_ids, token = self._device_exclusion(exclude)
-        q = self._qtensor(vector)
-        if vector2 is None:
-            res, new_mask = self._fused_query(q, mask, new_ids, rank)
-        elif self._sharded is not None:
-            res, new_mask = sharded_query_program(
-                self._sharded, q, mask, new_ids, self._qtensor(vector2), **rank)
-        else:  # the discounted query has no fused form, as in the JAX package
-            res, new_mask = frame_scoring.query_program_incr(
-                self._V, self._valid, self._boxes, self._zoom, q,
-                self._qtensor(vector2), mask, new_ids, self._row_scale, **rank,
+        with annotate("index.query"):
+            if shortlist_size is None or shortlist_size < topk:
+                shortlist_size = max(topk * 5, shortlist_size or 0)
+            rank = dict(
+                shortlist_size=min(shortlist_size, self.n_frames),
+                topk=min(topk, self.n_frames),
+                aug_larger=aug_larger, aug_weight=aug_weight,
+                agg_method=agg_method, max_zoom=self._max_zoom,
             )
-        self._commit_exclusion(token, new_mask)
-        return self._format_result(res)[0]
+            if isinstance(vector, frame_scoring.DeferredVector):
+                assert vector2 is None
+                handler = {
+                    frame_scoring.DeferredRocchio: self._query_rocchio,
+                    frame_scoring.DeferredLogistic: self._query_logistic,
+                    frame_scoring.DeferredMultiReg: self._query_multireg,
+                }[type(vector)]
+                return handler(vector, exclude=exclude, rank=rank)
+
+            mask, new_ids, token = self._device_exclusion(exclude)
+            q = self._qtensor(vector)
+            if vector2 is None:
+                res, new_mask = self._fused_query(q, mask, new_ids, rank)
+            elif self._sharded is not None:
+                res, new_mask = sharded_query_program(
+                    self._sharded, q, mask, new_ids, self._qtensor(vector2), **rank)
+            else:  # the discounted query has no fused form, as in the JAX package
+                res, new_mask = frame_scoring.query_program_incr(
+                    self._V, self._valid, self._boxes, self._zoom, q,
+                    self._qtensor(vector2), mask, new_ids, self._row_scale, **rank,
+                )
+            self._commit_exclusion(token, new_mask)
+            return self._format_result(res)[0]
 
     def _fused_query(self, q, mask, new_ids, rank):
         if self._sharded is not None:
@@ -665,32 +678,33 @@ class MultiscaleIndex(AccessMethod):
         propagation) with the same shortlist + augmentation tail as query().
         A DeferredPropagation marker runs the staged KnnProp2 round (click
         scatter + Jacobi propagation + this ranking) fused."""
-        if shortlist_size is None or shortlist_size < topk:
-            shortlist_size = max(topk * 5, shortlist_size or 0)
-        rank = dict(
-            shortlist_size=min(shortlist_size, self.n_frames),
-            topk=min(topk, self.n_frames),
-            aug_larger=aug_larger, aug_weight=aug_weight,
-            agg_method=agg_method, max_zoom=self._max_zoom,
-        )
-        if isinstance(scores, DeferredPropagation):
-            if self._sharded is None:
-                return self._rank_deferred_propagation(scores.ranker, exclude=exclude,
-                                                       rank=rank)
-            # no fused round over a mesh: propagate first, then rank
-            scores = scores.ranker._flush_propagation()
-        mask, new_ids, token = self._device_exclusion(exclude)
-        s = torch.as_tensor(scores, dtype=torch.float32).to(self.device)
-        if s.shape[0] != self.meta.n_vectors:
-            raise ValueError(f"{s.shape[0]} scores for {self.meta.n_vectors} vectors")
-        if self._sharded is not None:
-            res, new_mask = sharded_rank_program(
-                self._sharded, self._sharded.shard_tile_scores(s), mask, new_ids, **rank)
-        else:
-            res, new_mask = rank_padded(s, self._pad_rows, self._valid, self._boxes,
-                                        self._zoom, mask, new_ids, **rank)
-        self._commit_exclusion(token, new_mask)
-        return self._format_result(res)[0]
+        with annotate("index.rank"):
+            if shortlist_size is None or shortlist_size < topk:
+                shortlist_size = max(topk * 5, shortlist_size or 0)
+            rank = dict(
+                shortlist_size=min(shortlist_size, self.n_frames),
+                topk=min(topk, self.n_frames),
+                aug_larger=aug_larger, aug_weight=aug_weight,
+                agg_method=agg_method, max_zoom=self._max_zoom,
+            )
+            if isinstance(scores, DeferredPropagation):
+                if self._sharded is None:
+                    return self._rank_deferred_propagation(scores.ranker, exclude=exclude,
+                                                           rank=rank)
+                # no fused round over a mesh: propagate first, then rank
+                scores = scores.ranker._flush_propagation()
+            mask, new_ids, token = self._device_exclusion(exclude)
+            s = torch.as_tensor(scores, dtype=torch.float32).to(self.device)
+            if s.shape[0] != self.meta.n_vectors:
+                raise ValueError(f"{s.shape[0]} scores for {self.meta.n_vectors} vectors")
+            if self._sharded is not None:
+                res, new_mask = sharded_rank_program(
+                    self._sharded, self._sharded.shard_tile_scores(s), mask, new_ids, **rank)
+            else:
+                res, new_mask = rank_padded(s, self._pad_rows, self._valid, self._boxes,
+                                            self._zoom, mask, new_ids, **rank)
+            self._commit_exclusion(token, new_mask)
+            return self._format_result(res)[0]
 
     def _rank_deferred_propagation(self, ranker, *, exclude, rank) -> dict:
         """The fused KnnProp2 round: the staged clicks scatter into the
@@ -700,37 +714,46 @@ class MultiscaleIndex(AccessMethod):
         A round that needs more than one segment resumes segment by segment
         from the partial iterate (already label-clamped, so the sequence
         continues exactly) and ranks again over an empty exclusion delta
-        against the round's new mask. The ranker's state is committed last."""
+        against the round's new mask. The ranker's state is committed last.
+        The round's span records its `steps`, its Jacobi `segments` (one
+        `jacobi_step` launch each) and whether it `converged`."""
         lp = ranker.lp
         nbr, w, degree = lp.graph()
-        mask, new_ids, token = self._device_exclusion(exclude)
-        labels_dev, il_dev, ids, vals = ranker._deferred_state()
-        stop = int(min(lp.dispatch_iters or lp.max_iter, lp.max_iter))
-        res, new_mask, scores, labels2, il2, i, done = propagate_rank(
-            nbr, w, degree, ranker.prior_scores, labels_dev, il_dev, ids, vals,
-            ranker._propagation_start(), self._pad_rows, self._valid, self._boxes,
-            self._zoom, mask, new_ids,
-            reg_lambda=float(lp.reg_lambda), epsilon=lp.epsilon, stop_at=stop, **rank,
-        )
-        out, (i_h, done_h) = self._format_result(res, i.float(), done.float())
-        n_iter, converged, reads = int(i_h[0]), bool(done_h[0]), 1
-        if not converged and n_iter < lp.max_iter:
-            pr = propagate(
-                nbr, w, degree, ranker.prior_scores, labels2, il2, scores,
-                reg_lambda=float(lp.reg_lambda), max_iter=lp.max_iter - n_iter,
-                epsilon=lp.epsilon, dispatch_iters=lp.dispatch_iters,
-            )
-            scores, converged = pr.scores, pr.converged
-            n_iter, reads = n_iter + pr.n_iter, reads + pr.host_reads
-            res, new_mask = rank_padded(
-                scores, self._pad_rows, self._valid, self._boxes, self._zoom,
-                new_mask, self._new_ids_tensor(np.zeros(0, dtype=np.int64)), **rank,
-            )
-            out = self._format_result(res)[0]
-            reads += 1
-        self._commit_exclusion(token, new_mask)
-        ranker._commit_deferred(scores, labels2, il2, PropagationResult(
-            scores=scores, n_iter=n_iter, converged=converged, host_reads=reads))
+        with annotate("prop.round") as sp:
+            mask, new_ids, token = self._device_exclusion(exclude)
+            labels_dev, il_dev, ids, vals = ranker._deferred_state()
+            stop = int(min(lp.dispatch_iters or lp.max_iter, lp.max_iter))
+            with annotate("prop.dispatch"):
+                res, new_mask, scores, labels2, il2, i, done = propagate_rank(
+                    nbr, w, degree, ranker.prior_scores, labels_dev, il_dev, ids, vals,
+                    ranker._propagation_start(), self._pad_rows, self._valid, self._boxes,
+                    self._zoom, mask, new_ids,
+                    reg_lambda=float(lp.reg_lambda), epsilon=lp.epsilon, stop_at=stop,
+                    **rank,
+                )
+            out, (i_h, done_h) = self._format_result(res, i.float(), done.float())
+            n_iter, converged, reads, segments = int(i_h[0]), bool(done_h[0]), 1, 1
+            if not converged and n_iter < lp.max_iter:
+                with annotate("prop.resume"):
+                    pr = propagate(
+                        nbr, w, degree, ranker.prior_scores, labels2, il2, scores,
+                        reg_lambda=float(lp.reg_lambda), max_iter=lp.max_iter - n_iter,
+                        epsilon=lp.epsilon, dispatch_iters=lp.dispatch_iters,
+                    )
+                    scores, converged = pr.scores, pr.converged
+                    n_iter, reads = n_iter + pr.n_iter, reads + pr.host_reads
+                    segments += pr.host_reads
+                    res, new_mask = rank_padded(
+                        scores, self._pad_rows, self._valid, self._boxes, self._zoom,
+                        new_mask, self._new_ids_tensor(np.zeros(0, dtype=np.int64)),
+                        **rank,
+                    )
+                    out = self._format_result(res)[0]
+                    reads += 1
+            self._commit_exclusion(token, new_mask)
+            ranker._commit_deferred(scores, labels2, il2, PropagationResult(
+                scores=scores, n_iter=n_iter, converged=converged, host_reads=reads))
+            sp.set(steps=n_iter, segments=segments, converged=converged)
         return out
 
     def _format_result(self, res, *extras: torch.Tensor):
@@ -740,7 +763,9 @@ class MultiscaleIndex(AccessMethod):
         k = res.frame_ids.shape[0]
         parts = [res.frame_ids, res.act_boxes.reshape(-1), res.act_scores,
                  res.n_valid.reshape(1)] + [e.reshape(-1) for e in extras]
-        host = torch.cat([p.to(torch.float64) for p in parts]).cpu().numpy()
+        packed = torch.cat([p.to(torch.float64) for p in parts])
+        with host_sync("format_result"):
+            host = packed.cpu().numpy()
         off, ext = 6 * k + 1, []
         for e in extras:
             ext.append(host[off:off + e.numel()].astype(np.float32))
@@ -753,7 +778,9 @@ class MultiscaleIndex(AccessMethod):
         Q, k = res.frame_ids.shape
         parts = [res.frame_ids, res.act_boxes.reshape(Q, -1), res.act_scores,
                  res.n_valid.reshape(Q, 1)]
-        host = torch.cat([p.to(torch.float64) for p in parts], dim=1).cpu().numpy()
+        packed = torch.cat([p.to(torch.float64) for p in parts], dim=1)
+        with host_sync("format_results"):
+            host = packed.cpu().numpy()
         return [self._host_result(row, k) for row in host]
 
     def _host_result(self, host: np.ndarray, k: int) -> dict:
@@ -889,9 +916,10 @@ class BoxFeedbackQuery(InteractiveQuery):
         return {"dbidxs": idxs.astype(np.int64), "activations": None}
 
     def getXy(self, get_positions: bool = False, target_description: Optional[str] = None):
-        rows, dbidx, ys, max_iou = match_labels_to_vectors(
-            self.label_db, self.index.meta, target_description=target_description
-        )
+        with annotate("query.labels"):
+            rows, dbidx, ys, max_iou = match_labels_to_vectors(
+                self.label_db, self.index.meta, target_description=target_description
+            )
         if get_positions:
             return rows[ys > 0], rows[ys == 0]
         return {"rows": rows, "dbidx": dbidx, "ys": ys, "max_iou": max_iou}

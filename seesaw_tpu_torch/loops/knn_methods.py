@@ -27,6 +27,7 @@ import torch
 from ..knn_graph import KNNGraph, SymmetricWeights
 from ..label_propagation import LabelPropagation, check_prior_bounds
 from ..ops.propagation import DeferredPropagation, PropagationResult
+from ..utils.profiling import annotate, host_sync
 
 
 def sigmoid(x):
@@ -42,7 +43,9 @@ def normalize_scores(scores, epsilon: float):
     assert epsilon < 0.5
     lo = scores.min()
     gap = scores.max() - lo
-    if float(gap) == 0:
+    with host_sync("normalize_scores"):
+        gap_h = float(gap)
+    if gap_h == 0:
         full = torch.full_like if isinstance(scores, torch.Tensor) else np.full_like
         return full(scores, 0.5)
     x = (scores - lo) / gap
@@ -172,17 +175,18 @@ class BaseLabelPropagationRanker:
         return self.prior_scores
 
     def update(self, idxs, labels):
-        for idx, label in zip(idxs, labels):
-            idx, label = int(idx), float(label)
-            assert np.isclose(label, 0) or np.isclose(label, 1)
-            # keep the count of labeled negatives instead of scanning the
-            # (N,) mirrors on every click, as the reference does
-            if self.is_labeled[idx] > 0 and self.labels[idx] == 0:
-                self._negatives -= 1
-            self._negatives += label == 0
-            self.labels[idx] = label
-            self.is_labeled[idx] = 1
-            self._pending.append((idx, label))
+        with annotate("prop.update"):
+            for idx, label in zip(idxs, labels):
+                idx, label = int(idx), float(label)
+                assert np.isclose(label, 0) or np.isclose(label, 1)
+                # keep the count of labeled negatives instead of scanning the
+                # (N,) mirrors on every click, as the reference does
+                if self.is_labeled[idx] > 0 and self.labels[idx] == 0:
+                    self._negatives -= 1
+                self._negatives += label == 0
+                self.labels[idx] = label
+                self.is_labeled[idx] = 1
+                self._pending.append((idx, label))
         if self._negatives > 0:
             self._needs_prop = True
         # no negatives: scores unchanged (labels still clamp in the next run)
@@ -204,15 +208,19 @@ class BaseLabelPropagationRanker:
         last = dict(self._pending)
         ids = np.fromiter(last.keys(), dtype=np.int64, count=len(last))
         vals = np.fromiter(last.values(), dtype=np.float32, count=len(last))
-        return (torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(vals).to(self.device))
+        with host_sync("upload.clicks"):
+            ids_dev = torch.from_numpy(ids).to(self.device)
+        with host_sync("upload.clicks"):
+            vals_dev = torch.from_numpy(vals).to(self.device)
+        return ids_dev, vals_dev
 
     def _deferred_state(self):
         """(labels, is_labeled, ids, vals) for the fused round: the persistent
         device label state without the staged clicks, which ride into the
         round as a scatter. `_commit_deferred` publishes what it returns."""
-        self._ensure_device_labels()
-        return (self._labels_dev, self._is_labeled_dev, *self._pending_scatter())
+        with annotate("prop.stage", clicks=len(self._pending)):
+            self._ensure_device_labels()
+            return (self._labels_dev, self._is_labeled_dev, *self._pending_scatter())
 
     def _commit_deferred(self, scores, labels_dev, is_labeled_dev,
                          result: PropagationResult):
@@ -226,16 +234,21 @@ class BaseLabelPropagationRanker:
         self.last_result = result
 
     def _flush_propagation(self) -> torch.Tensor:
-        """Run a staged round eagerly (a host consumer asked for scores)."""
+        """Run a staged round eagerly (a host consumer asked for scores).
+        Its span records the run's `steps`, `segments` and `converged`."""
         if self._needs_prop:
-            self._ensure_device_labels()
-            if self._pending:
-                ids, vals = self._pending_scatter()
-                self._labels_dev[ids] = vals
-                self._is_labeled_dev[ids] = True
-                self._pending.clear()
-            self._current_scores = self._propagate(self._propagation_start())
-            self._needs_prop = False
+            with annotate("prop.flush") as sp:
+                self._ensure_device_labels()
+                if self._pending:
+                    ids, vals = self._pending_scatter()
+                    self._labels_dev[ids] = vals
+                    with host_sync("upload.labeled"):  # a blocking copy of the True
+                        self._is_labeled_dev[ids] = True
+                    self._pending.clear()
+                self._current_scores = self._propagate(self._propagation_start())
+                self._needs_prop = False
+                r = self.last_result
+                sp.set(steps=r.n_iter, segments=r.host_reads, converged=r.converged)
         return self._current_scores
 
     def _propagate(self, start):
@@ -244,7 +257,9 @@ class BaseLabelPropagationRanker:
     def current_scores(self) -> np.ndarray:
         """Host scores (runs a staged round first), bounds-checked against
         the prior."""
-        cs = self._flush_propagation().cpu().numpy()
+        scores = self._flush_propagation()
+        with host_sync("current_scores"):
+            cs = scores.cpu().numpy()
         check_prior_bounds(cs, self.prior_scores)
         return cs
 

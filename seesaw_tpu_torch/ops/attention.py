@@ -31,6 +31,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import kernel_launch
 from . import count_launch
 
 HEAD_DIM = 64
@@ -134,7 +135,7 @@ def _launch(lib, fn_name, argtypes, args, device):
     fn = getattr(load_library(lib), fn_name)
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
+    with kernel_launch(f"ops.{fn_name.removeprefix('seesaw_')}"), torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import kernel_launch
 from . import count_launch
 from .frame_scoring import (
     NEG_INF, _INT8_EXACT_D, apply_new_exclusions, quantize_query,
@@ -128,7 +129,7 @@ def fused_frame_max(vectors, valid, excluded, qvec, row_scale=None):
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, P]
     fn.restype = ctypes.c_int
     out = torch.empty(F, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with kernel_launch("ops.fused_frame_max"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             _KIND[vectors.dtype], vectors.data_ptr(), q_dev.data_ptr(),

@@ -19,6 +19,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.profiling import host_sync
+
 _C1 = 1e-4
 _C2 = 0.9
 _MAX_LS = 20
@@ -41,7 +43,9 @@ class _Syncs:
 
     def read(self, *flags: torch.Tensor) -> list[bool]:
         self.n += 1
-        return [bool(v) for v in torch.stack([f.reshape(()) for f in flags]).tolist()]
+        packed = torch.stack([f.reshape(()) for f in flags])
+        with host_sync("lbfgs"):
+            return [bool(v) for v in packed.tolist()]
 
 
 def _value_and_grad(fun: Callable[[torch.Tensor], torch.Tensor]):

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import annotate, host_sync
 from .frame_scoring import NEG_INF, rank_frames_from_scores_incr
 from .spmv import DONE, ITERS, jacobi_step, new_state
 
@@ -93,7 +94,8 @@ def propagate(
     i, done, reads = 0, False, 0
     while True:
         run.launch(i, min(c, max_iter - i))
-        i, done = (int(x) for x in run.state[[ITERS, DONE]].tolist())
+        with host_sync("propagate"):
+            i, done = (int(x) for x in run.state[[ITERS, DONE]].tolist())
         reads += 1
         if done or i >= max_iter:
             break
@@ -145,16 +147,18 @@ def propagate_rank(
     labels = labels0.clone()
     labels[new_ids] = new_vals
     is_labeled = is_labeled0.clone()
-    is_labeled[new_ids] = True
+    with host_sync("upload.labeled"):  # a blocking copy of the True
+        is_labeled[new_ids] = True
     run = _Run(nbr, w, degree, prior, labels, is_labeled, start,
                reg_lambda=reg_lambda, epsilon=epsilon)
     run.launch(0, stop_at)
     scores = run.select()
-    res, excluded = rank_padded(
-        scores, pad_rows, valid, boxes, zoom, excluded, new_excluded_ids,
-        shortlist_size=shortlist_size, topk=topk, aug_larger=aug_larger,
-        aug_weight=aug_weight, agg_method=agg_method, max_zoom=max_zoom,
-    )
+    with annotate("prop.rank"):
+        res, excluded = rank_padded(
+            scores, pad_rows, valid, boxes, zoom, excluded, new_excluded_ids,
+            shortlist_size=shortlist_size, topk=topk, aug_larger=aug_larger,
+            aug_weight=aug_weight, agg_method=agg_method, max_zoom=max_zoom,
+        )
     return (res, excluded, scores, labels, is_labeled, run.state[ITERS],
             run.state[DONE] != 0)
 

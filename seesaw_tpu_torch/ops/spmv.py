@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import kernel_launch
 from . import count_launch
 
 DONE, ITERS = 1, 2  # state words read by callers (see csrc/knn_spmv.cu)
@@ -110,7 +111,7 @@ def knn_spmv(f: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, *,
     dev = _check_device([f, nbr, w])
     fn = _library().seesaw_knn_spmv
     out = torch.empty(nbr.shape[0], dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with kernel_launch("ops.knn_spmv"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(f.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(),
                  nbr.shape[0], nbr.shape[1], stream)
@@ -180,7 +181,7 @@ def jacobi_step(f_in, f_out, nbr, w, denom, lam_prior, labels, is_labeled,
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("jacobi_step needs 16-byte aligned inputs (its bulk copies)")
     fn = _library().seesaw_jacobi_step
-    with torch.cuda.device(dev):
+    with kernel_launch("ops.jacobi_step", steps=int(steps)), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), float(eps), nbr.shape[0], nbr.shape[1],
                  int(steps), stream)

@@ -47,6 +47,7 @@ import torch
 from ..ops.knn import BLOCK_ROWS, CHUNK_COLS, _merge
 from ..ops.propagation import PropagationResult
 from ..ops.spmv import knn_spmv
+from ..utils.profiling import host_sync
 from .mesh import Mesh, all_gather, gather_to, pmax, rotate, split_rows
 
 _SIGN_FLIP = 0x7FFFFFFF
@@ -188,7 +189,8 @@ def propagate_on_mesh(
                 f[s] = torch.where(run, new[s], f[s])
                 steps[s] = steps[s] + run.to(torch.int32)
                 done[s] = done[s] | (run & (delta[s] < epsilon))
-        i, converged = torch.stack([steps[0], done[0].to(torch.int32)]).tolist()
+        with host_sync("propagate_on_mesh"):
+            i, converged = torch.stack([steps[0], done[0].to(torch.int32)]).tolist()
         converged = bool(converged)
         reads += 1
         if converged or i >= max_iter:

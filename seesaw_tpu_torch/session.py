@@ -97,29 +97,31 @@ class Session:
 
     # -- the loop ------------------------------------------------------------
     def next(self) -> np.ndarray:
-        self._log("next.start")
-        start = time.time()
         with annotate("session.next"):
+            self._log("next.start")
+            start = time.time()
             r = self.loop.next_batch_external()
-        delta = time.time() - start
-        self.acc_indices.append(np.asarray(r["dbidxs"]))
-        self.acc_activations.append(r["activations"])
-        self.timing.append(delta)
-        self._log("next.end")
+            delta = time.time() - start
+            self.acc_indices.append(np.asarray(r["dbidxs"]))
+            self.acc_activations.append(r["activations"])
+            self.timing.append(delta)
+            self._log("next.end")
         return r["dbidxs"]
 
     def set_text(self, key: str):
-        self._log("set_text")
-        self.init_q = key
-        self.loop.state.curr_str = key
-        vec = self.index.string2vec(string=key)
-        self.loop.set_text_vec(vec)
+        with annotate("session.set_text"):
+            self._log("set_text")
+            self.init_q = key
+            self.loop.state.curr_str = key
+            vec = self.index.string2vec(string=key)
+            self.loop.set_text_vec(vec)
 
     def update_state(self, state: SessionState):
-        self._update_labeldb(state)
-        self._log("update_state.end")
-        if self._check_reversals():
-            self.loop.set_reversals()
+        with annotate("session.update_state"):
+            self._update_labeldb(state)
+            self._log("update_state.end")
+            if self._check_reversals():
+                self.loop.set_reversals()
 
     def _check_reversals(self) -> bool:
         """A reversal: some rejected image followed by an accepted one, in
@@ -137,10 +139,10 @@ class Session:
         return False
 
     def refine(self):
-        self._log("refine.start")
         with annotate("session.refine"):
+            self._log("refine.start")
             self.loop.refine_external(self._last_change)
-        self._log("refine.end")
+            self._log("refine.end")
 
     # -- state (de)serialization --------------------------------------------
     def get_state(self) -> SessionState:

@@ -1,14 +1,15 @@
-"""The port's profiling hooks (`seesaw_tpu_torch.utils.profiling`): the three
+"""The port's profiling hooks (`seesaw_tpu_torch.utils.profiling`): two
 cases of tests/test_profiling.py on `torch.profiler`. A trace directory is
 written (the Chrome trace and the wall-time note), a nested trace is a
-no-op, a named span works with and without a trace, and SEESAW_PROFILE_DIR
-gates the tracing. On the CPU the trace holds the host's ops; on a card it
-also holds the kernels (`chip_smoke.py` phase 12g reads K1's name there)."""
+no-op, and a named span works with and without a trace. On the CPU the
+trace holds the host's ops; on a card it also holds the kernels
+(`chip_smoke.py` phase 12g reads K1's name there). The spans themselves:
+tests/test_torch_tracing.py."""
 import json
 
 import torch
 
-from seesaw_tpu_torch.utils.profiling import annotate, device_trace, maybe_trace_from_env
+from seesaw_tpu_torch.utils.profiling import annotate, device_trace
 
 
 def test_device_trace_writes_artifacts(tmp_path):
@@ -31,14 +32,3 @@ def test_annotate_without_trace():
     with annotate("no-trace-span"):
         assert float(torch.ones(3).sum()) == 3.0
 
-
-def test_env_gate(tmp_path, monkeypatch):
-    monkeypatch.delenv("SEESAW_PROFILE_DIR", raising=False)
-    with maybe_trace_from_env() as out:
-        assert out is None
-    monkeypatch.setenv("SEESAW_PROFILE_DIR", str(tmp_path / "envtrace"))
-    with maybe_trace_from_env() as out:
-        assert out is not None
-        float(torch.ones(4).sum())
-    assert (tmp_path / "envtrace" / "trace_meta.txt").exists()
-    assert (tmp_path / "envtrace" / "trace.json").exists()
