@@ -50,9 +50,8 @@ from ..labeldb import LabelDB
 from ..models.registry import load_embedding
 from ..ops import frame_scoring
 from ..ops.fused_scoring import query_program_fused_incr
-from ..ops.propagation import (
-    DeferredPropagation, PropagationResult, propagate, propagate_rank, rank_padded,
-)
+from ..ops.propagation import DeferredPropagation, PropagationResult, propagate, propagate_rank
+from ..ops.rank_tail import TailGraphs, rank_padded
 from ..parallel.sharded_index import (
     ShardedFrameIndex, sharded_query_program, sharded_rank_program,
 )
@@ -234,6 +233,8 @@ class MultiscaleIndex(AccessMethod):
         # exact row of each padded row (ragged tiling), or None when the
         # padded layout is the exact one (uniform tiling, device-built)
         self._pad_rows = pad_rows
+        # the fused round's ranking tail, a CUDA graph per shape on a card
+        self._rank_tail = TailGraphs(pad_rows=pad_rows, valid=valid, boxes=boxes, zoom=zoom)
         self._excl_lock = threading.Lock()
         self._excl_entries = OrderedDict()  # id(BitMap) -> _ExclEntry
         self._excl_base = None  # device mask for exclude=None
@@ -724,14 +725,13 @@ class MultiscaleIndex(AccessMethod):
             labels_dev, il_dev, ids, vals = ranker._deferred_state()
             stop = int(min(lp.dispatch_iters or lp.max_iter, lp.max_iter))
             with annotate("prop.dispatch"):
-                res, new_mask, scores, labels2, il2, i, done = propagate_rank(
+                packed, new_mask, scores, labels2, il2 = propagate_rank(
                     nbr, w, degree, ranker.prior_scores, labels_dev, il_dev, ids, vals,
-                    ranker._propagation_start(), self._pad_rows, self._valid, self._boxes,
-                    self._zoom, mask, new_ids,
+                    ranker._propagation_start(), self._rank_tail, mask, new_ids,
                     reg_lambda=float(lp.reg_lambda), epsilon=lp.epsilon, stop_at=stop,
                     **rank,
                 )
-            out, (i_h, done_h) = self._format_result(res, i.float(), done.float())
+            out, (i_h, done_h) = self._read_packed(packed, (1, 1))
             n_iter, converged, reads, segments = int(i_h[0]), bool(done_h[0]), 1, 1
             if not converged and n_iter < lp.max_iter:
                 with annotate("prop.resume"):
@@ -758,27 +758,29 @@ class MultiscaleIndex(AccessMethod):
 
     def _format_result(self, res, *extras: torch.Tensor):
         """QueryResult (+ extra f32 tensors) -> host, in ONE transfer of a
-        packed f64 buffer (exact for f32 values and for ids below 2^53).
-        Returns (result dict, extras as f32 numpy arrays)."""
-        k = res.frame_ids.shape[0]
-        parts = [res.frame_ids, res.act_boxes.reshape(-1), res.act_scores,
-                 res.n_valid.reshape(1)] + [e.reshape(-1) for e in extras]
-        packed = torch.cat([p.to(torch.float64) for p in parts])
+        packed f64 buffer (`frame_scoring.pack_result`). Returns (result
+        dict, extras as f32 numpy arrays)."""
+        return self._read_packed(frame_scoring.pack_result(res, *extras),
+                                 [e.numel() for e in extras])
+
+    def _read_packed(self, packed: torch.Tensor, extra_sizes=()):
+        """A packed (6k+1+extras,) result (`frame_scoring.pack_result`) ->
+        host, in ONE transfer. Returns (result dict, the extras of
+        `extra_sizes` as f32 numpy arrays)."""
         with host_sync("format_result"):
             host = packed.cpu().numpy()
+        k = (host.shape[0] - 1 - sum(extra_sizes)) // 6
         off, ext = 6 * k + 1, []
-        for e in extras:
-            ext.append(host[off:off + e.numel()].astype(np.float32))
-            off += e.numel()
+        for n in extra_sizes:
+            ext.append(host[off:off + n].astype(np.float32))
+            off += n
         return self._host_result(host, k), ext
 
     def _format_results(self, res) -> list:
         """A batch's QueryResult (a leading Q axis on every field) -> one
         result dict per query, in ONE transfer."""
-        Q, k = res.frame_ids.shape
-        parts = [res.frame_ids, res.act_boxes.reshape(Q, -1), res.act_scores,
-                 res.n_valid.reshape(Q, 1)]
-        packed = torch.cat([p.to(torch.float64) for p in parts], dim=1)
+        k = res.frame_ids.shape[1]
+        packed = frame_scoring.pack_result(res)
         with host_sync("format_results"):
             host = packed.cpu().numpy()
         return [self._host_result(row, k) for row in host]

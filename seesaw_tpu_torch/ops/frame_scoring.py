@@ -133,6 +133,17 @@ class QueryResult(NamedTuple):
     n_valid: torch.Tensor
 
 
+def pack_result(res: QueryResult, *extras: torch.Tensor) -> torch.Tensor:
+    """A result (+ extra tensors, flattened) as one f64 buffer for ONE host
+    read, exact for f32 values and for ids below 2^53: ids, boxes, top-tile
+    scores, the count, then the extras, (6k+1+...,); a batch's result (a
+    leading Q axis on every field) gives one such row per query."""
+    lead = res.frame_ids.shape[:-1]
+    parts = [res.frame_ids, res.act_boxes.reshape(*lead, -1), res.act_scores,
+             res.n_valid.reshape(*lead, 1)] + [e.reshape(*lead, -1) for e in extras]
+    return torch.cat([p.to(torch.float64) for p in parts], dim=-1)
+
+
 def quantize_query(qvec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 query quantization, in the JAX package's order:
     clip(round(q / qmax * 127), -127, 127) with qmax = max|q| + 1e-12.

@@ -25,8 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.profiling import annotate, host_sync
-from .frame_scoring import NEG_INF, rank_frames_from_scores_incr
+from ..utils.profiling import host_sync
 from .spmv import DONE, ITERS, jacobi_step, new_state
 
 
@@ -121,29 +120,24 @@ def propagate_rank(
     labels0, is_labeled0,  # (N,) persistent ranker label state
     new_ids, new_vals,  # the round's clicks: (P,) int64 vertex ids, (P,) f32
     start,  # (N,) start iterate (the prior, or the last scores with warm start)
-    pad_rows,  # (F*T,) exact row per padded row, or None when they coincide
-    valid, boxes, zoom,  # ranking-tail index arrays
+    tail,  # the index's ranking tail (`rank_tail.TailGraphs`)
     excluded, new_excluded_ids,  # incremental exclusion protocol
     *,
     reg_lambda: float,
     epsilon: float,
     stop_at: int,
-    shortlist_size: int,
-    topk: int,
-    aug_larger: str,
-    aug_weight: str,
-    agg_method: str,
-    max_zoom: int,
+    **rank,
 ):
     """The fused KnnProp2 round, counterpart of `propagate_rank_windowed`:
     scatter the clicks into the label state, run `stop_at` Jacobi steps (to
-    convergence when that comes first), rank the propagated scores. Nothing
-    is read from the device. When the run stops unconverged the ranking is
-    over the partial iterate; the caller reads (n_iter, converged), resumes
+    convergence when that comes first), rank the propagated scores with
+    `tail` (`rank` holds its options). Nothing is read from the device.
+    When the run stops unconverged the ranking is over the partial iterate;
+    the caller reads (n_iter, converged) from the packed result, resumes
     with `propagate` and ranks again (`MultiscaleIndex.
-    _rank_deferred_propagation`). Returns (QueryResult, new exclusion mask,
-    scores, labels, is_labeled, n_iter, converged), the last two as device
-    scalars."""
+    _rank_deferred_propagation`). Returns (the packed (6k+3,) f64 result
+    with n_iter and converged last, new exclusion mask, scores, labels,
+    is_labeled)."""
     labels = labels0.clone()
     labels[new_ids] = new_vals
     is_labeled = is_labeled0.clone()
@@ -153,21 +147,5 @@ def propagate_rank(
                reg_lambda=reg_lambda, epsilon=epsilon)
     run.launch(0, stop_at)
     scores = run.select()
-    with annotate("prop.rank"):
-        res, excluded = rank_padded(
-            scores, pad_rows, valid, boxes, zoom, excluded, new_excluded_ids,
-            shortlist_size=shortlist_size, topk=topk, aug_larger=aug_larger,
-            aug_weight=aug_weight, agg_method=agg_method, max_zoom=max_zoom,
-        )
-    return (res, excluded, scores, labels, is_labeled, run.state[ITERS],
-            run.state[DONE] != 0)
-
-
-def rank_padded(scores, pad_rows, valid, boxes, zoom, excluded, new_excluded_ids, **kw):
-    """Ranking tail over exact-layout (N,) scores: into the frame-major
-    padded layout (a gather when the index's rows are ragged), invalid rows
-    at -inf, then `frame_scoring.rank_frames_from_scores_incr`."""
-    s = scores if pad_rows is None else scores[pad_rows]
-    s_pad = torch.where(valid.reshape(-1), s, NEG_INF)
-    return rank_frames_from_scores_incr(s_pad, valid, boxes, zoom, excluded,
-                                        new_excluded_ids, **kw)
+    packed, excluded = tail(scores, excluded, new_excluded_ids, run.state, **rank)
+    return packed, excluded, scores, labels, is_labeled
