@@ -645,7 +645,7 @@ class MultiscaleIndex(AccessMethod):
         dev = self.device
         X = self._device_rows_f32(torch.from_numpy(dv.prows).to(dev))
         coeff, res = dv.model.solve(X, torch.from_numpy(dv.y).to(dev),
-                                    torch.from_numpy(dv.sw).to(dev))
+                                    torch.from_numpy(dv.sw).to(dev), deferred=True)
         self.last_fit = {"n_iter": res.n_iter, "host_syncs": res.host_syncs}
         return coeff, res
 

@@ -26,6 +26,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .utils.profiling import annotate
+
 
 # rows a chunk of the device XLX sums at once: 64k x 512 f32 is 128 MB a
 # gathered neighbour slot
@@ -216,7 +218,12 @@ class SymmetricWeights:
         summed over chunks of XLX_CHUNK_ROWS rows on that device, gathering
         each chunk's neighbour rows one slot at a time, so neither the
         (N, K, D) gather nor an f32 copy of X is ever made. Returns numpy for
-        numpy X, else a (D, D) f32 tensor on `device`."""
+        numpy X, else a (D, D) f32 tensor on `device`. Its `fit.xlx` span
+        counts the rows and the padded neighbour slots a row."""
+        with annotate("fit.xlx", rows=int(self.nbr.shape[0]), slots=int(self.nbr.shape[1])):
+            return self._xlx(X, normalize_by_trace, device)
+
+    def _xlx(self, X, normalize_by_trace: bool, device):
         if isinstance(X, np.ndarray):
             DX = X * self.degree[:, None]
             WX = self.apply(X)

@@ -31,6 +31,7 @@ import torch
 
 from ..ops.lbfgs import lbfgs_minimize
 from ..ops.rank_loss import pairwise_logistic_loss_sum, pairwise_rank_loss_sum
+from ..utils.profiling import annotate
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -163,11 +164,16 @@ class RegFit:
 
         return loss
 
-    def solve(self, X: torch.Tensor, y: torch.Tensor, sw: torch.Tensor):
+    def solve(self, X: torch.Tensor, y: torch.Tensor, sw: torch.Tensor, *,
+              deferred: bool = False):
         """LBFGS over `objective` from the query vector, on X's device.
-        Returns (normalized coefficient, LBFGSResult)."""
-        res = lbfgs_minimize(self.objective(X, y, sw), _f32(self.qvec_hat, X.device),
-                             max_iter=self.max_iter, history=10)
+        Returns (normalized coefficient, LBFGSResult). Its `fit.multireg`
+        span counts the labelled rows, the iterations, the host reads and
+        whether the fit runs inside the index's query (`deferred`)."""
+        with annotate("fit.multireg", rows=int(X.shape[0]), deferred=int(deferred)) as sp:
+            res = lbfgs_minimize(self.objective(X, y, sw), _f32(self.qvec_hat, X.device),
+                                 max_iter=self.max_iter, history=10)
+            sp.set(iters=res.n_iter, host_reads=res.host_syncs)
         return _normalize(res.x), res
 
     def fit(self, X: np.ndarray, y: np.ndarray, sample_weights: Optional[np.ndarray] = None):

@@ -37,6 +37,20 @@ class WeightMatrixOptions(BaseModel):
 
 _wm_cache: dict = {}
 _wm_lock = threading.Lock()
+_wm_building: dict = {}  # key -> Event set when its first caller's build ends
+
+
+def _build_weights(opts: WeightMatrixOptions, use_cache: bool, X_vectors, device):
+    if opts.xlx_matrix:
+        assert X_vectors is not None
+        weights = lookup_weights(opts.model_copy(update={"xlx_matrix": False}),
+                                 use_cache=use_cache)
+        return weights.xlx(X_vectors, normalize_by_trace=True, device=device)
+    knng = KNNGraph.from_file(opts.knn_path).restrict_k(k=opts.knn_k)
+    if opts.symmetric:
+        return symmetrize_weights(knng, rbf_kernel(opts.edist))
+    # uniform-degree forward adjacency (self included, weight 0)
+    return forward_weights(knng, rbf_kernel(opts.edist))
 
 
 def lookup_weights(opts: WeightMatrixOptions, *, use_cache: bool = True,
@@ -44,26 +58,30 @@ def lookup_weights(opts: WeightMatrixOptions, *, use_cache: bool = True,
     """Weight structure (or the XLX matrix) for a graph path, cached. The
     XLX matrix takes X_vectors as `SymmetricWeights.xlx` does: a host
     matrix, or a row function on `device`. It is made from the (cached)
-    weight structure of the same options."""
+    weight structure of the same options. A cached key is built once per
+    process: concurrent callers of a key wait for its first caller's build
+    (and build it themselves if that one raised), while callers of other
+    keys go on."""
+    if not use_cache:
+        return _build_weights(opts, use_cache, X_vectors, device)
     key = opts.model_dump_json()
-    with _wm_lock:
-        if use_cache and key in _wm_cache:
-            return _wm_cache[key]
-    if opts.xlx_matrix:
-        assert X_vectors is not None
-        weights = lookup_weights(opts.model_copy(update={"xlx_matrix": False}),
-                                 use_cache=use_cache)
-        out = weights.xlx(X_vectors, normalize_by_trace=True, device=device)
-    else:
-        knng = KNNGraph.from_file(opts.knn_path).restrict_k(k=opts.knn_k)
-        if opts.symmetric:
-            out = symmetrize_weights(knng, rbf_kernel(opts.edist))
-        else:
-            # uniform-degree forward adjacency (self included, weight 0)
-            out = forward_weights(knng, rbf_kernel(opts.edist))
-    if use_cache:
+    while True:
+        with _wm_lock:
+            if key in _wm_cache:
+                return _wm_cache[key]
+            building = _wm_building.get(key)
+            if building is None:
+                building = _wm_building[key] = threading.Event()
+                break
+        building.wait()
+    try:
+        out = _build_weights(opts, use_cache, X_vectors, device)
         with _wm_lock:
             out = _wm_cache.setdefault(key, out)
+    finally:
+        with _wm_lock:
+            del _wm_building[key]
+        building.set()
     return out
 
 
